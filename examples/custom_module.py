@@ -94,8 +94,8 @@ def main() -> None:
     print(f"rendered {a.shape} peak={np.abs(a).max():.3f} "
           f"rms={np.sqrt((a ** 2).mean()):.3f}")
 
-    # the same patch, batched across 8 detuned voices (the fused kernel
-    # picks this up on TPU; off-TPU auto falls back to block/scan)
+    # the same patch, batched across 8 detuned voices (the voice-kernel
+    # shell picks this up on a GPU; elsewhere auto takes block/scan)
     v = 8
     params = st.replicate_params(patch.params(), v)
     osc_id = [i.id for i in patch

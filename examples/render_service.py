@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Minimal batch render service: patches in, WAV out, over HTTP.
 
-The production-serving shape for this framework: one process owns the TPU,
+The production-serving shape for this framework: one process owns the GPU,
 keeps compiled programs warm (the compile cache is keyed by patch
 topology, so repeated requests for the same topology pay zero compiles),
 and renders request batches with the fused engines.  Stdlib-only

@@ -1,4 +1,4 @@
-"""srack_tpu — a TPU-native modular synthesis framework.
+"""srack_tpu — a batched modular synthesis framework on JAX.
 
 A ground-up JAX/XLA rebuild of the capabilities of the s-rack modular
 softsynth (reference mounted at /root/reference): patch graphs of

@@ -130,7 +130,7 @@ def _cmd_render(args) -> int:
 def _cmd_midi(args) -> int:
     """Render a .mid file through gate/CV-driven subtractive voices
     (polyphonic: notes are allocated onto ``--voices`` monophonic lanes and
-    batch-rendered, one VPU lane per voice)."""
+    batch-rendered, one lane per voice)."""
     import numpy as np
 
     from . import engine
@@ -245,7 +245,7 @@ def _cmd_presets(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="srack_tpu",
-        description="TPU-native modular synthesis framework")
+        description="batched modular synthesis framework on JAX")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def add_source_opts(p):
@@ -298,4 +298,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from .utils import compile_cache
+    compile_cache.enable()
     sys.exit(main())

@@ -20,44 +20,40 @@ its true minimum:
    rest.  The serial *stage* = S ∪ middle in plan order.
 
 3. **Execute.**  ``pre`` runs as [n]-vectorised XLA ops (vmapped over
-   voices -- huge fusable tensors, VPU throughput-bound); the stage runs
-   per-sample over streamed input wires -- on TPU in the generic Pallas
-   serial kernel (ops/serial_kernel.py), elsewhere as a lax.scan; ``post``
-   runs block-wise on the stage's output wires.
+   voices -- large fusable elementwise tensors); the stage runs per-sample
+   over streamed input wires -- on a GPU in the voice-kernel shell
+   (ops/shell.py, chosen by route.voice_kernel), elsewhere as a lax.scan;
+   ``post`` runs block-wise on the stage's output wires.
 
-Role: the fused kernel (register-resident, VPU issue-rate bound) wins for
-patches made purely of register-friendly modules; this engine is the fast
-path for everything *else* -- patches with table-driven modules
-(sequencers, sample players) or long delay lines (Freeverb) whose block
-implementations are gather-free prefix-scan code that cannot live inside
-the fused kernel.
+Role: the fused engine (the whole patch in the shell, state in registers)
+wins for patches made purely of register-friendly modules; this engine is
+the path for everything *else* -- patches with sample players or long
+delay lines (Freeverb) whose block implementations are prefix-scan and
+gather code that cannot live inside the shell.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
 
+from . import route
 from .config import AudioConfig
 from .modules.base import CV_DTYPE
-from .ops import fused, serial_kernel
+from .ops import fused, shell
 
 # module types the block engine runs per-sample in the serial stage.
 # Moog's ladder recurrence has no parallel-prefix form.  ADSR *does* have
-# a segment-parallel whole-block form (ops/adsr_block.py) but the serial
-# Pallas stage kernel beats it at farm scale -- measured 1024x48k on v5e:
-# serial ~2 ms marginal vs ~21 ms for the event-classify machinery
-# (the envelope is ~15 register ops/sample; classify needs ~10 full-block
-# elementwise passes per fixed-point round).  Freeverb and Sample stay
-# block-side: delay lines are chunk-parallel, triggered playback is
-# segment-parallel.
+# a segment-parallel whole-block form (ops/adsr_block.py): the envelope is
+# ~15 register ops per sample in the serial stage, while the event-classify
+# machinery needs ~10 full-block elementwise passes per fixed-point round.
+# Freeverb and Sample stay block-side: delay lines are chunk-parallel,
+# triggered playback is segment-parallel.
 SERIAL_TYPES = frozenset({"Moog Filter", "ADSR"})
 
-# serial-stage types safe for the Pallas kernel: exactly the fused
-# engine's "pure register math" set -- one definition so a new
-# register-friendly type changes eligibility for both paths in lockstep.
+# serial-stage types safe for the shell: exactly the fused engine's "pure
+# register math" set -- one definition so a new register-friendly type
+# changes eligibility for both paths in lockstep.
 PALLAS_SAFE = fused.REGISTER_TYPES
 
 
@@ -187,13 +183,11 @@ class BlockProgram:
         # -- synthesized stage seed: patches with no serial core (e.g. the
         # sampler kit: clock + sequencer + Samples + mixer) still pay the
         # XLA block impls' whole-render prefix machinery (the sequencer's
-        # monotone_fill alone materializes [n, V] log-doubling passes --
-        # the 23.6 GB OOM at 30 s renders).  Seed a stage from the
-        # register-safe ANCESTORS of the non-safe modules so that
-        # machinery runs per sample in VMEM instead; adopted only if the
-        # implied stage is wholly Pallas-safe and has a state carry (a
-        # stateless or unsafe stage would fall back to lax.scan, a
-        # pessimization vs the block impls).
+        # monotone_fill alone materializes [n, V] log-doubling passes).
+        # Seed a stage from the register-safe ANCESTORS of the non-safe
+        # modules so that machinery runs per sample in registers instead;
+        # adopted only if the implied stage is wholly shell-safe and has a
+        # state carry.
         if not serial and not self.cfg.exact:
             unsafe = {m for m in insts if not _safe(m)}
             safe_anc = {m for m in reach(unsafe, deps) - unsafe
@@ -219,17 +213,14 @@ class BlockProgram:
         # -- stage absorption: grow the stage over register-safe ------------
         # neighbors.  The XLA block impls of register-math modules
         # (oscillator prefix sums, sequencer edge counts, elementwise
-        # chains) cost several full-HBM passes each, while the same
-        # modules inside the per-sample Pallas stage cost roughly their
-        # op count in VMEM registers -- measured 6.5 vs 2.0 ms per second
-        # of audio at 1024 voices for the subtractive voice chain
-        # (scripts/ab_voice_block.py), the same machinery every block
-        # config pays around its Sample/Freeverb cores.  A pre module is
+        # chains) cost several full-memory passes each, while the same
+        # modules inside the per-sample stage cost roughly their op count
+        # in registers.  A pre module is
         # absorbed when every consumer is already stage/post-side
         # (reverse plan order reaches the fixpoint in one sweep); a post
         # module when every producer is pre/stage-side (forward order) --
         # so the pre -> stage -> post plan-order invariant is preserved.
-        # Only when the existing stage is already Pallas-eligible:
+        # Only when the existing stage is already shell-eligible:
         # growing a lax.scan-fallback stage would pessimize it.  The
         # Output module never joins (make_run routes channels through the
         # block phases).
@@ -276,23 +267,6 @@ class BlockProgram:
             stage_out.update(k for k in compiled.fb_keys
                              if k[0] in self.stage_set)
         self.stage_out = sorted(stage_out)
-
-        # static used-wire set for block_outs_hint modules (probes are
-        # compile-time, so this is exact): a module output is dead iff no
-        # input wire, probe, or audio channel reads it -- dead outputs let
-        # opt-in block impls skip whole [V, n] HBM stores (ModuleDef.
-        # block_outs_hint)
-        used_wires = set(self.probe_wires)
-        for mid2 in plan:
-            used_wires.update(c for c in insts[mid2][2] if c is not None)
-        self._outs_used = {}
-        for mid2 in plan:
-            mdef2, statics2, _ = insts[mid2]
-            if mdef2.block_outs_hint:
-                n_out = mdef2.num_outputs(self.cfg, statics2)
-                self._outs_used[mid2] = tuple(
-                    mid2 == compiled.output_id or (mid2, p) in used_wires
-                    for p in range(n_out))
 
         self.pallas_ok = all(
             insts[mid][0].type_name in PALLAS_SAFE
@@ -341,10 +315,8 @@ class BlockProgram:
                                for p in auto}}
             with jax.named_scope(f"{mdef.type_name}:{mid}"):
                 if mdef.block is not None:
-                    kw = ({"outs_used": self._outs_used[mid]}
-                          if mid in self._outs_used else {})
                     new_state, outs = mdef.block(
-                        cfg, statics, pd, states[mid], ins, x, n, **kw)
+                        cfg, statics, pd, states[mid], ins, x, n)
                 else:
                     new_state, outs = (mdef.step_nograd or mdef.step)(
                         cfg, statics, pd, states[mid], ins, x)
@@ -404,19 +376,12 @@ class BlockProgram:
 
     # -- full program --------------------------------------------------------
 
-    def make_run(self, n: int, t_chunk: Optional[int] = None):
+    def make_run(self, n: int, interpret: bool = False):
         """Build ``run(params, state, key, drivers) -> (audio, {}, state)``
-        over a leading voice axis (batched)."""
+        over a leading voice axis (batched).  ``interpret=True`` (tests)
+        runs a shell-eligible serial stage in the Pallas interpreter."""
         if self.buffer_mode:
-            return self._make_run_buffer(n, t_chunk)
-        if t_chunk is None:
-            # size the kernel's streamed-wire chunks so double-buffered
-            # in/out lanes fit comfortably in 16 MB VMEM
-            n_streams = max(1, len(self.stage_in) + len(self.stage_out)
-                            + len(self.stage_autos))
-            budget = 10 * 1024 * 1024
-            per_t = n_streams * serial_kernel.TILE_VOICES * 4 * 2
-            t_chunk = max(64, min(512, (budget // per_t) // 8 * 8))
+            return self._make_run_buffer(n, interpret)
         compiled = self.compiled
         cfg = self.cfg
         n_channels = cfg.channels
@@ -448,16 +413,7 @@ class BlockProgram:
             probes = {w: values[w] for w in self.probe_wires if w in values}
             return new_states, channels, probes
 
-        # the Pallas serial kernel carries state in VMEM and requires at
-        # least one carry leaf; an all-stateless stage (e.g. an automated
-        # Noise) with no feedback lanes falls back to the lax.scan path
-        stage_has_carry = bool(compiled.fb_keys) or any(
-            jax.tree.leaves(
-                compiled.instances[m][0].init_state(
-                    cfg, compiled.instances[m][1]))
-            for m in self.stage_plan)
-        use_pallas = (self.pallas_ok and self.stage_plan and stage_has_carry
-                      and jax.default_backend() == "tpu")
+        use_shell = self._use_shell(interpret)
 
         if self.stage_plan:
             def kernel_step(k_params, k_state, ins_dict):
@@ -527,12 +483,11 @@ class BlockProgram:
                 if mid_x in xs:
                     ins_lanes[f"x:{mid_x}"] = xs[mid_x]
 
-            if use_pallas:
-                kern = serial_kernel.make_serial_kernel(
-                    kernel_step, n, [wire_key(w) for w in stage_out_keys],
-                    t_chunk=t_chunk)
-                out_lanes, stage_final = kern(
-                    stage_params, stage_state, ins_lanes)
+            if use_shell:
+                out_lanes, stage_final = shell.run(
+                    kernel_step, n, stage_params, stage_state, ins_lanes,
+                    [wire_key(w) for w in stage_out_keys],
+                    interpret=interpret)
             else:
                 def scan_one(sp, ss, lanes):
                     def body(carry, lane_t):
@@ -573,14 +528,18 @@ class BlockProgram:
 
     # -- buffer-feedback compat mode ------------------------------------------
 
-    def _make_run_buffer(self, n: int, t_chunk: Optional[int] = None):
+    def _use_shell(self, interpret: bool) -> bool:
+        return bool(self.pallas_ok and self.stage_plan
+                    and (interpret or route.voice_kernel()))
+
+    def _make_run_buffer(self, n: int, interpret: bool = False):
         """Reference-exact previous-buffer feedback on the block engine.
 
         One block is fully block-parallel (every fb edge reads the previous
         block's lane, so the within-block graph is acyclic); blocks chain
         under an outer ``lax.scan`` carrying module states + fb lanes --
         the same structure as compiler._render_buffer_mode but with the
-        block phases vectorised and the serial stage in the Pallas kernel.
+        block phases vectorised and the serial stage in the shell.
         """
         compiled = self.compiled
         cfg = self.cfg
@@ -590,8 +549,6 @@ class BlockProgram:
                 f"buffer_feedback mode renders whole blocks: n={n} is not a "
                 f"multiple of block_size={block}")
         n_blocks = n // block
-        if t_chunk is None:
-            t_chunk = min(block, 512)
         fb_keys = tuple(sorted(compiled.fb_keys))
         stage_out_keys = list(self.stage_out)
         if compiled.output_id in self.stage_set:
@@ -630,16 +587,7 @@ class BlockProgram:
             probes = {w: values[w] for w in self.probe_wires if w in values}
             return new_states, channels, probes, values
 
-        # buffer mode's stage carry is module states only (fb lanes stream
-        # in as per-sample inputs); all-stateless stages take the scan path
-        stage_has_carry = any(
-            jax.tree.leaves(
-                compiled.instances[m][0].init_state(
-                    cfg, compiled.instances[m][1]))
-            for m in self.stage_plan)
-        use_pallas = (self.pallas_ok and self.stage_plan and stage_has_carry
-                      and jax.default_backend() == "tpu")
-        kern = None
+        use_shell = self._use_shell(interpret)
         if self.stage_plan:
             def kernel_step(k_params, k_state, ins_dict):
                 ext = {eval_key(k): val for k, val in ins_dict.items()}
@@ -647,11 +595,6 @@ class BlockProgram:
                     k_params, k_state["states"], k_state["fb"], ext)
                 out_lanes = {wire_key(w): outs[w] for w in stage_out_keys}
                 return {"states": new_states, "fb": fb_out}, out_lanes
-
-            if use_pallas:
-                kern = serial_kernel.make_serial_kernel(
-                    kernel_step, block,
-                    [wire_key(w) for w in stage_out_keys], t_chunk=t_chunk)
 
         def one_block(params, states, fb, xs_b):
             pre_states, pre_channels, pre_probes, pre_values = jax.vmap(
@@ -673,9 +616,11 @@ class BlockProgram:
                 for mid_x in self.stage_plan:
                     if mid_x in xs_b:
                         ins_lanes[f"x:{mid_x}"] = xs_b[mid_x]
-                if use_pallas:
-                    out_lanes, stage_final = kern(
-                        stage_params, stage_state, ins_lanes)
+                if use_shell:
+                    out_lanes, stage_final = shell.run(
+                        kernel_step, block, stage_params, stage_state,
+                        ins_lanes, [wire_key(w) for w in stage_out_keys],
+                        interpret=interpret)
                 else:
                     def scan_one(sp, ss, lanes):
                         def body(carry, lane_t):

@@ -3,10 +3,10 @@
 The reference's hot loop is two nested loops -- a sequential module loop per
 tick (src/synth.rs:97-101) around per-sample loops inside each ``calc()``
 (src/main.rs:59-90 call stack).  Lowering inverts that nesting, which is the
-whole TPU trick: the module chain becomes straight-line code *inside* a
-single per-sample ``lax.scan`` body, so XLA fuses every module's math into
-one loop body with all state in registers/VMEM, and ``vmap`` turns the body
-into wide VPU lanes across voices.
+whole accelerator trick: the module chain becomes straight-line code
+*inside* a single per-sample loop body, so every module's math fuses into
+one loop body with all state in registers, and ``vmap`` turns the body
+into wide lanes across voices.
 
 Feedback semantics: the planner deletes back-edges (synth.rs:168-192) and
 the Rust runtime then simply reads whatever is in the source's buffer --
@@ -172,10 +172,10 @@ class CompiledPatch:
     def derived_params(self, params: dict) -> dict:
         """Merge each module's per-render derived params (ModuleDef.derive).
 
-        Applied once per render call, outside the per-sample loop: Mosaic
-        does not hoist loop-invariant math, so reciprocals/filter
-        coefficients recomputed inside the sample loop are real per-sample
-        cost.  Pure jnp, differentiable, broadcasts over batched leaves.
+        Applied once per render call, outside the per-sample loop, so
+        reciprocals/filter coefficients are not recomputed per sample
+        whatever the kernel compiler would hoist.  Pure jnp,
+        differentiable, broadcasts over batched leaves.
         """
         out = {}
         for mid, (mdef, statics, inputs) in self.instances.items():
@@ -227,10 +227,13 @@ class CompiledPatch:
     def _sample_step(self, params, states, fb_t, x_t, nograd: bool = False):
         """One sample through the whole plan.  ``fb_t`` maps fb key ->
         scalar feedback value for this sample; ``x_t`` maps module id ->
-        this sample's hoisted input.  ``nograd=True`` (only legal from
-        engines that are never differentiated, e.g. the plain fused Pallas
-        render) lets modules elide gradient-only ops via
-        ``ModuleDef.step_nograd``; primal outputs are bit-identical."""
+        this sample's hoisted input.  Returns ``(new_states, fb_out,
+        channels, probes)`` with one value per output channel (the
+        voice-kernel shell stores channels one by one: it cannot stack).
+        ``nograd=True`` (only legal from engines that are never
+        differentiated, e.g. the plain fused render) lets modules elide
+        gradient-only ops via ``ModuleDef.step_nograd``; primal outputs are
+        bit-identical."""
         cfg = self.cfg
         values = {}
         new_states = {}
@@ -267,24 +270,26 @@ class CompiledPatch:
         fb_out = {k: values[k] for k in self.fb_keys}
         probe_vals = {
             _probe_key(mid, p): values[(mid, p)] for mid, p in self.probes}
-        if channels:
-            # an unconnected output channel is a scalar 0 while connected
-            # ones are lane tiles inside the Pallas kernels -- broadcast to
-            # a common shape before stacking
-            target = jnp.broadcast_shapes(*(jnp.shape(c) for c in channels))
-            audio = jnp.stack([jnp.broadcast_to(c, target) for c in channels])
-        else:
-            audio = jnp.zeros((0,), CV_DTYPE)
-        return new_states, fb_out, audio, probe_vals
+        return new_states, fb_out, tuple(channels or ()), probe_vals
 
     # -- whole-render programs ----------------------------------------------
+
+    @staticmethod
+    def _stack_channels(channels):
+        if not channels:
+            return jnp.zeros((0,), CV_DTYPE)
+        # an unconnected output channel is a scalar 0: broadcast to the
+        # connected channels' shape before stacking
+        target = jnp.broadcast_shapes(*(jnp.shape(c) for c in channels))
+        return jnp.stack([jnp.broadcast_to(c, target) for c in channels])
 
     def _render_sample_mode(self, params, state, xs, n: int):
         def body(carry, x_t):
             states, fb = carry
-            new_states, fb_out, audio, probe_vals = self._sample_step(
+            new_states, fb_out, channels, probe_vals = self._sample_step(
                 params, states, fb, x_t)
-            return (new_states, fb_out), (audio, probe_vals)
+            return (new_states, fb_out), (self._stack_channels(channels),
+                                          probe_vals)
 
         (states_f, fb_f), (ys, probe_ys) = jax.lax.scan(
             body, (state["states"], state["fb"]), xs, length=n)
@@ -306,9 +311,10 @@ class CompiledPatch:
 
             def inner(states2, t_in):
                 x_t, fb_t = t_in
-                new_states, fb_out, audio, probe_vals = self._sample_step(
+                new_states, fb_out, channels, probe_vals = self._sample_step(
                     params, states2, fb_t, x_t)
-                return new_states, (audio, fb_out, probe_vals)
+                return new_states, (self._stack_channels(channels), fb_out,
+                                    probe_vals)
 
             states_f, (audio_b, fb_ys, probe_b) = jax.lax.scan(
                 inner, states, (xs_b, fb_blocks), length=block)
@@ -339,21 +345,21 @@ class CompiledPatch:
         return run
 
     def fused_eligible(self) -> bool:
-        """True when the patch can run on the fused Pallas voice kernel."""
+        """True when the patch can run in the voice-kernel shell."""
         from .ops import fused
         return fused.eligible(self)
 
     def auto_engine(self, batched: bool) -> str:
-        """Pick the fastest legal engine: fused > block > scan."""
-        from . import block_engine
-        on_tpu = jax.default_backend() == "tpu"
-        if batched and self.fused_eligible() and on_tpu:
-            return "fused"  # whole-patch register-resident kernel
-        if batched and block_engine.eligible(self):
-            return "block"
-        if not batched and on_tpu and block_engine.eligible(self):
-            # a single voice still fills one (8,128) lane tile; the block
-            # engine is ~50x faster than a 1-lane scan on TPU
+        """The engine a render takes by default: the shell's whole-patch
+        render where the platform has it (route.voice_kernel), else the
+        block engine for batches (and for one voice where the shell runs
+        its serial stage), else the scan."""
+        from . import route
+        if batched and self.fused_eligible() and route.voice_kernel():
+            return "fused"
+        if batched or route.voice_kernel():
+            # one voice still takes a block of the shell: the block engine
+            # beats a per-sample XLA loop there
             return "block"
         return "scan"
 
@@ -367,6 +373,7 @@ class CompiledPatch:
         """The unjitted ``(params, state, key, drivers) -> (audio, probes,
         final_state)`` program for one engine at one render length."""
         if engine == "fused":
+            from . import route
             from .ops import fused
             if not batched:
                 raise ValueError("fused engine requires batched render")
@@ -376,6 +383,7 @@ class CompiledPatch:
                     "precision, no probes, and only register-friendly "
                     f"modules: {sorted(fused.REGISTER_TYPES)} or custom "
                     "types registered with register_safe=True)")
+            route.require_voice_kernel("engine='fused'")
             if self.cfg.buffer_feedback:
                 return fused.make_fused_render_buffer(self, n)
             return fused.make_fused_render(self, n)
@@ -399,9 +407,9 @@ class CompiledPatch:
         ``n // segment`` segments with module state carried between them.
 
         A single unsegmented call must hold every whole-render intermediate
-        lane in HBM at once (the block engine's [V, n] wires OOM around 15 s
-        x 1024 voices); segmenting bounds live intermediates to one segment
-        while still paying the ~28 ms dispatch+fetch transport once.
+        lane in device memory at once (the block engine's [V, n] wires);
+        segmenting bounds live intermediates to one segment while still
+        paying one dispatch.
         Semantics are exactly :func:`srack_tpu.engine.render_long`'s -- state
         carries (bit-identical in fast mode), noise lanes re-key per segment
         via ``fold_in(key, seg_idx)`` -- but the loop runs on device instead
@@ -480,35 +488,21 @@ class CompiledPatch:
             self._fn_cache.put(cache_key, fn)
         return fn
 
-    def grad_render_fn(self, n: int, batched: bool = True,
-                       packed_audio: bool = False):
+    def grad_render_fn(self, n: int, batched: bool = True):
         """A differentiable batched render at kernel speed.
 
-        ``jax.grad`` cannot flow through the Pallas kernels directly.  For
-        fused-eligible patches on TPU this returns the full Pallas-VJP
-        render (ops/fused_vjp.py: Pallas forward *and* backward, ~40x
-        faster gradient steps than scan autodiff).  Otherwise it wraps the
-        plain program in a ``custom_vjp`` whose backward differentiates the
-        scan-engine program.  Signature: ``(params, state, keys, drivers)
-        -> (audio, probes, final_state)``.
-
-        ``packed_audio`` (fused path only): return audio in the kernels'
-        native ``[n, C, V_tiles, 8, 128]`` layout and accept the audio
-        cotangent in the same layout -- skips the [V, n] <-> tiled
-        transposes around the custom_vjp (~8.5 ms of a ~17 ms grad step
-        at 1024 x 48k).  Pack targets with ``ops.fused_vjp.pack_lanes``.
-        Requires the fused path (raises otherwise).
+        ``jax.grad`` cannot flow through a Pallas kernel directly.  For
+        fused-eligible patches on a platform with the voice-kernel shell
+        this returns the shell's forward+backward render (ops/fused_vjp.py).
+        Otherwise it wraps the plain program in a ``custom_vjp`` whose
+        backward differentiates the scan-engine program.  Signature:
+        ``(params, state, keys, drivers) -> (audio, probes, final_state)``.
         """
-        use_fused = (batched and self.fused_eligible()
-                     and not self.cfg.buffer_feedback
-                     and jax.default_backend() == "tpu")
-        if packed_audio and not use_fused:
-            raise ValueError("packed_audio requires the fused Pallas-VJP "
-                             "path (batched, fused-eligible, TPU)")
-        if use_fused:
+        from . import route
+        if (batched and self.fused_eligible()
+                and not self.cfg.buffer_feedback and route.voice_kernel()):
             from .ops import fused_vjp
-            return fused_vjp.make_fused_vjp(self, n,
-                                            packed_audio=packed_audio)
+            return fused_vjp.make_fused_vjp(self, n)
         scan_fn = self.make_render_fn(n, batched=batched)
         fast_fn = scan_fn
 
@@ -545,9 +539,10 @@ class CompiledPatch:
         across calls exactly as the reference's module fields persist across
         ``calc`` ticks (SURVEY.md §5 long-context).
 
-        ``engine``: ``"scan"`` (fused lax.scan, runs everywhere),
-        ``"fused"`` (Pallas voice kernel, TPU + batched + register-friendly
-        patches only), or ``"auto"`` (fused when eligible on TPU).
+        ``engine``: ``"scan"`` (one ``lax.scan`` over samples, runs
+        everywhere), ``"block"`` (block engine), ``"fused"`` (the
+        voice-kernel shell: GPU, batched, register-friendly patches only),
+        or ``"auto"`` (:meth:`auto_engine`).
 
         ``segment``: render on device in ``segment``-sample pieces under one
         ``lax.scan`` (must divide ``n_samples``) -- one dispatch, state

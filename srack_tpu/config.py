@@ -1,6 +1,6 @@
 """Audio configuration.
 
-TPU-native analogue of the reference engine's ``AudioConfig`` struct
+Accelerator analogue of the reference engine's ``AudioConfig`` struct
 (reference: src/synth.rs:21-25).  The reference hard-codes
 48 kHz / stereo / block 1024 at the app entry (src/main.rs:16,115-117) and
 pushes the config into every module; here it is an explicit dataclass handed
@@ -10,8 +10,8 @@ Additions over the reference (build-side, see SURVEY.md §5 "Config"):
 
 * ``precision`` — ``"exact"`` mirrors the reference's per-module dtypes
   (f64 oscillator phase / f64 freeverb core, f32 control voltages), intended
-  for CPU oracle validation with ``jax_enable_x64``.  ``"fast"`` is the TPU
-  performance mode: f32 everywhere, with oscillator phase kept in uint32
+  for CPU oracle validation with ``jax_enable_x64``.  ``"fast"`` is the
+  accelerator performance mode: f32 everywhere, with oscillator phase kept in uint32
   fixed point (exact modular arithmetic -> zero long-render drift, unlike a
   raw f32 accumulator).
 * ``buffer_feedback`` — when True, broken feedback edges read the value from

@@ -70,7 +70,7 @@ def render_stream(patch: Patch, *, params: Optional[dict] = None,
     ``params`` with a leading ``V`` axis, see :func:`stack_params` /
     :func:`replicate_params`) to stream ``V`` voices of the topology at
     once -- audio blocks are ``[V, channels, block]`` and run on the
-    batch engines (fused Pallas kernel / block engine on TPU), so the
+    batch engines (voice-kernel shell / block engine), so the
     reference's play-while-editing loop works at the 1000-voice scale
     that justifies the batch engines, not just one voice at a time.
     Live topology edits migrate every voice's state across the swap.
@@ -304,7 +304,7 @@ def render_batch(patch: Patch, n_samples: int, *, params: dict,
 
     ``params`` must carry a leading voice axis on every leaf (see
     :func:`stack_params` / :func:`replicate_params`).  Returns audio of
-    shape ``[voices, channels, n]``.  This is the TPU-native replacement for
+    shape ``[voices, channels, n]``.  This is the batched replacement for
     instantiating N module graphs (SURVEY.md §2f: voice batching).
     ``automation`` lanes may be shared ``[n]`` (broadcast over voices) or
     per-voice ``[V, n]``.

@@ -51,7 +51,7 @@ _BUILTIN_TYPES = frozenset(CATALOG)
 def register(mdef: ModuleDef, *, replace: bool = False) -> ModuleDef:
     """Add a user-defined module type to the catalog.
 
-    The TPU analogue of implementing the reference's ``SynthModule`` trait
+    The JAX analogue of implementing the reference's ``SynthModule`` trait
     and appending to ``get_catalog()`` (src/synth.rs:216-263, 421-515):
     once registered, the type is creatable with ``Patch.add(name)``, runs
     on the scan engine unconditionally and on the block engine (stateless

@@ -16,10 +16,10 @@ Faithful branchless reproduction of the reference's per-sample state machine
 
 Modes are encoded as int32: 0=None 1=Attack 2=Decay 3=Sustain 4=Release.
 The ``match`` becomes mode-indexed ``where`` chains: every branch's update is
-computed unconditionally (cheap VPU math) and selected -- compiler-friendly
+computed unconditionally (cheap elementwise math) and selected -- compiler-friendly
 control flow instead of the reference's data-dependent branching.
 
-**Phase representation (TPU-first).**  The reference accumulates ``phase +=
+**Phase representation (accelerator-first).**  The reference accumulates ``phase +=
 inc`` per sample; this module instead carries an int32 stage counter ``k``
 and an entry offset ``p0`` and evaluates ``phase = p0 + float(k)*inc``.
 Counter phase is what makes the envelope *segment-parallel*: the whole
@@ -68,7 +68,7 @@ def stage_incs(params, sample_rate):
     """Per-stage phase increments ``1/(sr * t_sec)`` (adsr.rs:143,166,183).
 
     Reads the derived entries when present (three reciprocals per sample
-    are real VPU cost -- Mosaic does not hoist them)."""
+    otherwise, see ModuleDef.derive)."""
     if "inc_a" in params:
         return params["inc_a"], params["inc_d"], params["inc_r"]
     sr = jnp.asarray(sample_rate, dtype=CV_DTYPE)

@@ -1,4 +1,4 @@
-"""Module contract for the TPU synthesis engine.
+"""Module contract for the synthesis engine.
 
 The reference models a module as a trait object with mutable per-output
 buffers and a ``calc()`` that runs a per-sample loop over one block
@@ -71,17 +71,18 @@ class ModuleDef:
     # Optional per-render derived params, computed ONCE outside the
     # per-sample loop and merged into params before any step/block runs:
     # (cfg, statics, params, connected: tuple[bool]) -> dict.
-    # Mosaic does NOT hoist loop-invariant math out of the sample loop
-    # (measured: in-loop reciprocals cost ~2x), so anything a step
-    # recomputes per sample from params alone belongs here.
+    # Anything a step recomputes per sample from params alone belongs here:
+    # the per-sample loop then carries the result instead of recomputing
+    # it, whatever the kernel compiler would or would not hoist.
     derive: Optional[Callable[..., dict]] = None
     # Optional step variant for engines that are never differentiated
-    # (the plain fused Pallas render): must produce bit-identical primal
-    # outputs and state to ``step`` but may elide gradient-only machinery
-    # (e.g. the oscillator's straight-through shadow-phase ops, which are
-    # exactly zero in the primal yet cost real VPU issue slots -- Mosaic
-    # cannot fold float ``x - stop_grad(x)`` to 0).  Differentiable paths
-    # (scan autodiff, ops/fused_vjp.py) always use ``step``.
+    # (the plain fused render, the block engine): must produce bit-identical
+    # primal outputs and state to ``step`` but may elide gradient-only
+    # machinery (e.g. the oscillator's straight-through shadow-phase ops,
+    # which are exactly zero in the primal yet cost real issue slots: a
+    # compiler cannot fold float ``x - stop_grad(x)`` to 0).
+    # Differentiable paths (scan autodiff, ops/fused_vjp.py) always use
+    # ``step``.
     step_nograd: Optional[Callable[..., tuple]] = None
     # Param names whose per-sample automation the *block engine* can run
     # without forcing the module into the serial stage: either the module
@@ -90,28 +91,19 @@ class ModuleDef:
     # params NOT listed here push the module into the serial stage (exact
     # per-sample semantics at serial-stage speed).
     auto_block_params: frozenset = frozenset()
-    # Custom-module opt-in for the Pallas paths (the fused whole-patch
-    # kernel and the block engine's serial-stage kernel).  Built-in types
-    # are whitelisted explicitly; a registered custom type is only traced
-    # into Mosaic kernels when it declares ``register_safe=True``, which
-    # promises: ``step``/``step_nograd`` use only elementwise jnp math
-    # (no gather/scatter/reshape, no f32<->u32 bitcasts, no bool state
-    # carried across samples -- see CLAUDE.md Mosaic notes), and state is
-    # a dict of per-voice scalars or small fixed-size vectors (like the
-    # Moog filter's [5] stage vector).  Without the flag the module still
-    # runs on every engine: scan always, block via its lax.scan serial
-    # stage (block_engine.PALLAS_SAFE fallback).
+    # Custom-module opt-in for the voice-kernel shell (ops/shell.py: the
+    # fused whole-patch render and the block engine's serial stage).
+    # Built-in types are whitelisted explicitly; a registered custom type
+    # is only traced into the shell when it declares ``register_safe=True``,
+    # which promises: ``step``/``step_nograd`` use only elementwise jnp
+    # math (no gather/scatter, no slicing or stacking of arrays -- the
+    # shell's Triton route lowers neither), and state/params are per-voice
+    # scalars or small fixed-size vectors that the step indexes element by
+    # element (the shell hands them over as lists of per-voice rows, like
+    # the Moog filter's [5] stage vector).  Without the flag the module
+    # still runs on every engine: scan always, block via its lax.scan
+    # serial stage (block_engine.PALLAS_SAFE fallback).
     register_safe: bool = False
-    # Opt-in unused-output elision for ``block`` impls: when True the
-    # block engine passes ``outs_used`` (tuple of bools, one per output
-    # port; True = some wire/probe/output-channel consumes it) as a
-    # keyword, and the impl may skip WORK for dead outputs (it must still
-    # return a full out tuple -- placeholders are fine, they are never
-    # read).  This extends Mosaic's DCE of unused fused-kernel outputs
-    # (CLAUDE.md) to hand-written block kernels, whose HBM output writes
-    # XLA cannot eliminate: e.g. Freeverb's unconnected Right channel is
-    # a whole [V, n] store.
-    block_outs_hint: bool = False
 
     def port_index(self, cfg: AudioConfig, statics: Statics, port, *, output: bool) -> int:
         """Resolve a port given by index or label to an index."""

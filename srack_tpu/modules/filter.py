@@ -14,7 +14,7 @@ The reference caches coefficients and recomputes only when (freq, res)
 change (filter.rs:59-68).  Here they are recomputed unconditionally -- a
 pure function of the same inputs, observationally identical (the initial
 all-zero cache is only hit with zero state, where both paths yield zeros)
-and branch-free, which is what the VPU wants.
+and branch-free, which is what a vectorised step wants.
 
 Effective cutoff = clamp(freq + cv * exp_amt, 0, 0.9), res clamped to [0, 1]
 (filter.rs:211-215).  All math is f32 like the reference.
@@ -40,7 +40,7 @@ def moog_coefs(frequency, res):
     """Coefficients from normalised cutoff + resonance (filter.rs:59-68).
 
     Split from the ladder so unmodulated filters hoist this chain out of
-    the per-sample loop via ModuleDef.derive (Mosaic does not LICM it)."""
+    the per-sample loop via ModuleDef.derive."""
     q0 = 1.0 - frequency
     p = frequency + 0.8 * frequency * q0
     f = p * 2.0 - 1.0
@@ -49,23 +49,25 @@ def moog_coefs(frequency, res):
 
 
 def moog_stage(b, audio, p, f, q):
-    """One sample of the ladder core.  ``b`` is the [5] stage vector.
+    """One sample of the ladder core.  ``b`` is the [5] stage vector (in
+    the voice-kernel shell: a list of five per-voice rows).
 
-    Returns (new_b, lp, hp, bp).  Kept standalone so the block-mode engine
-    and the Pallas voice kernel reuse the identical math.
+    Returns (new_b, lp, hp, bp), ``new_b`` in ``b``'s own form.  Computed
+    element by element -- no stack-then-slice of the stage vector, which
+    the shell's Triton route cannot lower -- with the same values.
     """
-    b0, b1, b2, b3, b4 = b[0], b[1], b[2], b[3], b[4]
+    b0, b1, b2, b3, b4 = (b[i] for i in range(5))
     x = audio - q * b4
     nb1 = (x + b0) * p - b1 * f
     nb2 = (nb1 + b1) * p - b2 * f
     nb3 = (nb2 + b2) * p - b3 * f
     nb4 = (nb3 + b3) * p - b4 * f
     nb4 = nb4 - nb4 * nb4 * nb4 * 0.166667
-    nb0 = x
-    new_b = jnp.clip(jnp.stack([nb0, nb1, nb2, nb3, nb4]), -1.0, 1.0)
-    lp = new_b[4]
-    hp = x - new_b[4]
-    bp = 3.0 * (new_b[3] - new_b[4])
+    nb = [jnp.clip(v, -1.0, 1.0) for v in (x, nb1, nb2, nb3, nb4)]
+    lp = nb[4]
+    hp = x - nb[4]
+    bp = 3.0 * (nb[3] - nb[4])
+    new_b = nb if isinstance(b, list) else jnp.stack(nb)
     return new_b, lp, hp, bp
 
 

@@ -41,10 +41,6 @@ OFFSET_ROOM = 0.7
 ALLPASS_FEEDBACK = 0.5
 
 
-# timing-attribution knob, see _block's ring normalization
-_ASSUME_RING_ALIGNED = False
-
-
 def adjust_length(length: int, sample_rate: int) -> int:
     return max(1, (length * sample_rate) // 44100)
 
@@ -148,16 +144,14 @@ def _step(cfg: AudioConfig, statics, params, state, ins, x=None):
     return state, (final_l, final_r)
 
 
-def _pick_t_c(chunk: int, n: int) -> int:
-    """Kernel chunk size: the largest 128-multiple <= the shortest comb.
-    (A smaller t_c that divides ``n`` would kill the per-segment XLA tail
-    chunk, but pays proportionally more ring-roll traffic per sample --
-    measured net-negative at 480k segments, scripts/r4_fv_ab.py.)"""
-    return (chunk // 128) * 128
+def ring_to_chronological(buf, idx):
+    """A ring buffer with write index ``idx`` in time order (``[0]`` =
+    oldest = next read): one dynamic slice of the doubled line."""
+    return jax.lax.dynamic_slice(jnp.concatenate([buf, buf]), (idx,),
+                                 (buf.shape[0],))
 
 
-def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
-           outs_used=(True, True)):
+def _block(cfg: AudioConfig, statics, params, state, ins, xs, n):
     """Chunk-parallel Freeverb: the delay lines make the recurrence
     *blockwise* parallel -- within a chunk no longer than the shortest
     delay line, every comb/allpass read is at least one chunk old, so a
@@ -176,8 +170,7 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
     dt = _core_dtype(cfg)
     cl, cr, al, ar = line_lengths(cfg.sample_rate)
     # two-level chunking: the combs admit chunks up to the shortest *comb*
-    # (~1214 @48k) -- long enough for the Pallas scan kernel and 5x fewer
-    # outer steps -- while the short allpasses (~245 min) process each chunk
+    # (~1214 @48k), while the short allpasses (~245 min) process each chunk
     # in sub-pieces.  Series causality is preserved: pieces go in time
     # order, and each allpass's delay line sees its writes in time order.
     chunk = min(min(cl), min(cr), n)
@@ -188,11 +181,8 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
             return jnp.zeros((n,), dt)
         return jnp.broadcast_to(x, (n,)).astype(dt)
 
-    # same wire feeding both inputs (the common mono-send topology): the
-    # fused kernel streams ONE lane instead of two
-    mono = ins[0] is ins[1]
     l_in = lane(ins[0])
-    r_in = l_in if mono else lane(ins[1])
+    r_in = l_in if ins[0] is ins[1] else lane(ins[1])
     damp, feed, in_gain, wet1, wet2, dry = freeverb_gains(params, dt)
     # block-engine automation: gain params may arrive as per-sample [n]
     # lanes.  wet1/wet2/dry apply at the output mix -- moved outside the
@@ -211,27 +201,8 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
                  + [f"al{i}" for i in range(len(al))]
                  + [f"ar{i}" for i in range(len(ar))])
 
-    # ring -> chronological (hist[0] = oldest = next read).  On TPU the
-    # per-voice rotation runs as a VMEM kernel (ops/ring_roll.py): the
-    # vmapped XLA dynamic_slice lowers to the known-slow gather (~39 ms
-    # of a 93 ms 1-s reverb render at 1024 voices, round-3 profile).
-    tpu_rot = dt == jnp.float32 and jax.default_backend() == "tpu"
-    if tpu_rot:
-        from ..ops.ring_roll import ring_align
-    hist = {}
-    for k in line_keys:
-        buf, idx = state[k], state[f"{k}_idx"]
-        if _ASSUME_RING_ALIGNED:
-            # dev knob (scripts/profile_reverb.py): every _block exit and
-            # fresh init leaves idx == 0, so the rotation is a no-op on
-            # the block-engine steady state; this skips it to attribute
-            # its cost (NOT semantics-safe after a scan-engine handoff)
-            hist[k] = buf
-        elif tpu_rot:
-            hist[k] = ring_align(buf, idx)
-        else:
-            hist[k] = jax.lax.dynamic_slice(
-                jnp.concatenate([buf, buf]), (idx,), (buf.shape[0],))
+    hist = {k: ring_to_chronological(state[k], state[f"{k}_idx"])
+            for k in line_keys}
     fs = {f"c{ch}{i}": state[f"c{ch}{i}_fs"]
           for ch in "lr" for i in range(len(cl))}
 
@@ -239,12 +210,7 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
         """One chunk of ``csize <= chunk`` samples (every delay-line read
         within it predates the chunk, so it vectorises).  Returns the RAW
         reverb outputs; the wet/dry mix happens once over the whole render
-        (exact per-sample, including automated wet/width/dry lanes).
-
-        (Measured dead end: stacking all 16 comb recurrences into one
-        [16, csize] batched solve per chunk -- the stack/broadcast
-        materialization cost more than the 16 separate solves, 181 ->
-        223 ms at farm scale, and compile time blew up 10x.)"""
+        (exact per-sample, including automated wet/width/dry lanes)."""
 
         def comb_chunk(h, fs0, mixed, dmp, fd):
             y = h[:csize]
@@ -295,67 +261,13 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
 
     carry = (hist, fs)
     pieces_l, pieces_r = [], []
-
-    # TPU fast path: the whole-Freeverb Pallas kernel keeps all 24 delay
-    # lines VMEM-resident for the full chunks (ops/freeverb_kernel.py);
-    # the tail (< one chunk) chains through the XLA body below.
-    n_full = 0
-    use_kernel = (dt == jnp.float32 and chunk >= 128 and not fb_varies
-                  and jax.default_backend() == "tpu")
-    if use_kernel:
-        from ..ops import freeverb_kernel as fvk
-        t_c = _pick_t_c(chunk, n)
-        n_full = (n // t_c) * t_c
-    # fold the module's elementwise shell (input gain + wet/dry mix, ~11
-    # whole-render HBM passes) into the kernel when every gain is a scalar
-    # (automated gain lanes keep the exact-per-sample outside mix)
-    fuse_mix = (use_kernel
-                and all(jnp.ndim(g) == 0
-                        for g in (in_gain, wet1, wet2, dry)))
-    if n_full:
-        comb_keys = ([f"cl{i}" for i in range(len(cl))]
-                     + [f"cr{i}" for i in range(len(cr))])
-        ap_keys = ([f"al{i}" for i in range(len(al))]
-                   + [f"ar{i}" for i in range(len(ar))])
-        fs_keys = [f"c{ch}{i}" for ch in "lr" for i in range(len(cl))]
-        fs_stack = jnp.stack([fs[k] for k in fs_keys])
-        hist_args = [hist[k] for k in comb_keys + ap_keys]
-        lens_args = (tuple(cl) + tuple(cr), tuple(al) + tuple(ar))
-        if fuse_mix:
-            skip_r = not outs_used[1]
-            fn = fvk.entry_mix(*lens_args, n_full, t_c, mono, skip_r)
-            in_lanes = ((l_in[:n_full],) if mono
-                        else (l_in[:n_full], r_in[:n_full]))
-            outs = fn(*in_lanes, fs_stack, damp, feed, in_gain,
-                      wet1, wet2, dry, *hist_args)
-            if skip_r:
-                # dead Right output: placeholder lane, DCEd downstream
-                outs = (outs[0], jnp.zeros_like(outs[0])) + tuple(outs[1:])
-        else:
-            mixed_full = (l_in[:n_full] + r_in[:n_full]) * in_gain
-            fn = fvk.entry(*lens_args, n_full, t_c)
-            outs = fn(mixed_full, fs_stack, damp, feed, *hist_args)
-        out_l, out_r, fs_f = outs[0], outs[1], outs[2]
-        pieces_l.append(out_l)
-        pieces_r.append(out_r)
-        hist = dict(hist)
-        fs = dict(fs)
-        for k, h_new in zip(comb_keys + ap_keys, outs[3:]):
-            hist[k] = h_new
-        for j, k in enumerate(fs_keys):
-            fs[k] = fs_f[j]
-        carry = (hist, fs)
-
-    rest = n - n_full
-    full = rest // chunk
-    rem = rest - full * chunk
-    l_rest, r_rest = l_in[n_full:], r_in[n_full:]
+    full, rem = divmod(n, chunk)
     if full:
-        xs_chunks = (l_rest[:full * chunk].reshape(full, chunk),
-                     r_rest[:full * chunk].reshape(full, chunk))
+        xs_chunks = (l_in[:full * chunk].reshape(full, chunk),
+                     r_in[:full * chunk].reshape(full, chunk))
         if fb_varies:
             # damp/feed snapshot at each chunk start (piecewise-constant)
-            offs = n_full + jnp.arange(full) * chunk
+            offs = jnp.arange(full) * chunk
             xs_chunks = xs_chunks + (damp[offs], feed[offs])
         carry, (fl, fr) = jax.lax.scan(make_body(chunk), carry, xs_chunks)
         pieces_l.append(fl.reshape(-1))
@@ -363,7 +275,7 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
     if rem:
         # partial tail chunk: consume exactly ``rem`` samples so carried
         # state stays sample-accurate for continued renders
-        xs_tail = (l_rest[full * chunk:], r_rest[full * chunk:])
+        xs_tail = (l_in[full * chunk:], r_in[full * chunk:])
         if fb_varies:
             xs_tail = xs_tail + (damp[n - rem], feed[n - rem])
         carry, (fl, fr) = make_body(rem)(carry, xs_tail)
@@ -378,19 +290,6 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
     for ch in "lr":
         for i in range(len(cl)):
             new_state[f"c{ch}{i}_fs"] = fss_f[f"c{ch}{i}"]
-    if fuse_mix and n_full:
-        # the kernel already emitted final-mixed audio for [:n_full]; only
-        # the sub-chunk XLA tail still needs the wet/dry shell
-        out_l, out_r = pieces_l[0], pieces_r[0]
-        tail_l, tail_r = pieces_l[1:], pieces_r[1:]
-        if tail_l:
-            tl = tail_l[0] if len(tail_l) == 1 else jnp.concatenate(tail_l)
-            tr = tail_r[0] if len(tail_r) == 1 else jnp.concatenate(tail_r)
-            fl = tl * wet1 + tr * wet2 + l_in[n_full:] * dry
-            fr = tr * wet1 + tl * wet2 + r_in[n_full:] * dry
-            out_l = jnp.concatenate([out_l, fl])
-            out_r = jnp.concatenate([out_r, fr])
-        return new_state, (out_l.astype(CV_DTYPE), out_r.astype(CV_DTYPE))
     raw_l = pieces_l[0] if len(pieces_l) == 1 else jnp.concatenate(pieces_l)
     raw_r = pieces_r[0] if len(pieces_r) == 1 else jnp.concatenate(pieces_r)
     # wet/dry mix over the whole render: exact per-sample semantics for
@@ -418,6 +317,4 @@ FREEVERB = ModuleDef(
     # chunk start -- the comb solve needs in-chunk-constant coefficients)
     auto_block_params=frozenset(
         {"dampening", "wet", "width", "room_size", "dry"}),
-    # a dead Right output elides a whole [V, n] kernel store (mono patches)
-    block_outs_hint=True,
 )

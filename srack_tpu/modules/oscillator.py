@@ -5,15 +5,15 @@ pitch convention 1.0 CV = 1 octave with 0.0 -> 440 Hz
 (oscillator.rs:43-48), sine/square/saw outputs with polyBLEP band-limiting
 (oscillator.rs:124-153), and a Sync input that resets phase on a rising edge.
 
-TPU-first design notes
-----------------------
+Accelerator-first design notes
+------------------------------
 * ``exact`` precision keeps the phase accumulator in f64 like the reference
   (oscillator.rs:21 ``pos: f64``); requires ``jax_enable_x64`` and is meant
   for CPU oracle validation.
 * ``fast`` precision keeps phase in **uint32 fixed point** (1 ulp = 2^-32 of
   a cycle).  Integer adds wrap naturally, so ``pos % 1.0`` is free and the
   accumulator has *zero* drift over arbitrarily long renders -- strictly
-  better behaved than a raw f32 accumulator, at f32 cost on the VPU.
+  better behaved than a raw f32 accumulator, at f32 cost.
 * Noise is reproducible counter-based randomness (threefry) hoisted out of
   the scan as per-sample xs; the reference uses non-reproducible
   ``rand::random`` (oscillator.rs:381-388) so noise paths are excluded from
@@ -57,8 +57,7 @@ def _osc_init_state(cfg: AudioConfig, statics):
 def _osc_derive(cfg: AudioConfig, statics, params, connected):
     """With the CV input unconnected (LFOs, clocks, fixed-pitch voices) the
     whole frequency chain ``440 * 2^val / sr`` is loop-invariant; hoisting
-    it removes ~10 VPU ops from the per-sample step (Mosaic does not LICM,
-    see ModuleDef.derive)."""
+    it removes ~10 ops from the per-sample step (see ModuleDef.derive)."""
     if connected and connected[0]:
         return {}
     if cfg.exact:

@@ -7,7 +7,7 @@ position (sample.rs:228); when the position runs past the end, playback
 stops and the position resets (sample.rs:223-226).  The decoder takes
 channel 0 only (sample.rs:42,59) -- see srack_tpu.io.wav.
 
-TPU-first: the decoded waveform is a *traced parameter* (padded to a static
+The decoded waveform is a *traced parameter* (padded to a static
 ``max_len``), so swapping samples of the same length doesn't recompile, the
 per-sample read is a gather, and renders are differentiable w.r.t. the
 waveform itself.  The reference's audio-thread ``try_lock`` skip path
@@ -21,19 +21,7 @@ import jax.numpy as jnp
 
 from ..config import AudioConfig
 from ..ops.basic import (block_lane, block_transitions, fast_cumsum,
-                         monotone_fill, t_index, table_lookup, transition,
-                         transition_init)
-
-# Waveform reads in the block path: the fused whole-Sample kernel
-# (ops/sample_kernel) computes the entire gate->position->gather pipeline
-# in one VMEM pass for f32 lanes on TPU; the windowed dynamic-gather
-# kernel (ops/sample_gather) handles tables of any length the per-row
-# VMEM budget admits (~3 M frames) at >1 G samples/s when only the read
-# is fusable; the select-chain kernel (ops/scan_kernel, O(K) vector ops)
-# covers short renders and small tables; the XLA gather (~50 M scalar
-# loads/s) is the last resort.
-from ..ops import sample_gather, sample_kernel
-from ..ops.scan_kernel import GATHER_MAX_K as SELECT_CHAIN_MAX
+                         monotone_fill, t_index, transition, transition_init)
 from .base import CV_DTYPE, ModuleDef, const_ports, cv, in_or
 
 
@@ -108,21 +96,9 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n):
     lane = state["pos"].shape
     gate = block_lane(ins[0], lane, n)
     # unconnected CV input = constant per-voice rate: the position prefix
-    # sum collapses to ``base * arange(n)`` (no scan; mirrored exactly by
-    # the fused kernel's constant-rate path)
+    # sum collapses to ``base * arange(n)`` (no scan)
     cv_const = ins[1] is None
     cv_in = None if cv_const else block_lane(ins[1], lane, n)
-
-    if sample_kernel.eligible(params["samples"], gate, n):
-        base_rate = params["wav_sr"] / cfg.sample_rate
-        out, pos_end, playing_end, g_last = sample_kernel.play_table(
-            gate, None if cv_const else cv_in.astype(jnp.float32),
-            params["samples"], base_rate,
-            state["pos"], state["playing"], state["gate_last"],
-            params["length"])
-        new_state = {"pos": pos_end.astype(CV_DTYPE),
-                     "playing": playing_end, "gate_last": g_last}
-        return new_state, (out.astype(CV_DTYPE),)
 
     gate_last, trig = block_transitions(state["gate_last"], gate)
 
@@ -138,7 +114,7 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n):
 
     # last-trigger fill of cum_excl = running MAX of cum_excl at triggers
     # (rates are non-negative so cum_excl is non-decreasing; max is exact
-    # and order-free, so any chunking matches the fused kernel bit-for-bit)
+    # and order-free)
     filled, has_trig = monotone_fill(cum_excl, trig, axis=0)
     carry_pos = jnp.where(state["playing"], cum_excl + state["pos"],
                           state["pos"])
@@ -146,12 +122,7 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n):
     crossed = s >= length_f  # monotone within a segment (rate > 0)
 
     idx = jnp.clip(s.astype(jnp.int32), 0, max_len - 1)
-    if sample_gather.eligible(params["samples"], idx):
-        read = sample_gather.gather_1d(params["samples"], idx)
-    elif max_len <= SELECT_CHAIN_MAX:
-        read = table_lookup(params["samples"], idx)
-    else:
-        read = params["samples"][idx]
+    read = params["samples"][idx]
     first = params["samples"][0]
     out = jnp.where(params["length"] > 0,
                     jnp.where(crossed, first, read), 0.0).astype(CV_DTYPE)

@@ -14,10 +14,10 @@ PatternSequencer (sequencer.rs:482-533): 8 trigger rows over the same step
 pointer; per row an on-cell emits 1.0, a slide-cell passes the Step input
 through, an empty cell emits 0.0.
 
-TPU-first: the sequence grid is a traced parameter table (capacity-sized,
-with a traced ``n_steps``), so sequence *edits never recompile* -- lookups
-are packed select-chains by the carried step counter (TPU gathers run at
-scalar speed).  Cell encoding: 0 = off, 1 = slide, 2 = on (the reference's
+Accelerator-first: the sequence grid is a traced parameter table
+(capacity-sized, with a traced ``n_steps``), so sequence *edits never
+recompile* -- per-sample lookups are packed select trees by the carried
+step counter (no gather inside the voice-kernel shell).  Cell encoding: 0 = off, 1 = slide, 2 = on (the reference's
 Option<(note, hold)> / Option<bool>).
 """
 
@@ -81,8 +81,8 @@ def _grid_make(cfg: AudioConfig, sequence=None, n_steps: int = None,
 
 def _grid_derive(cfg: AudioConfig, statics, params, connected):
     """Hoist the per-render packed table + CV scale out of the sample loop
-    (Mosaic does not LICM: the K multiply-adds and the reciprocal were
-    real per-sample VPU cost -- see ModuleDef.derive)."""
+    (the K multiply-adds and the reciprocal would otherwise run per
+    sample -- see ModuleDef.derive)."""
     spo = params["steps_per_octave"].astype(CV_DTYPE)
     return {"packed_tbl": params["notes"] * 4 + params["cells"],
             "inv_spo": 1.0 / spo}
@@ -144,8 +144,8 @@ def _grid_block(cfg: AudioConfig, statics, params, state, ins, xs, n):
     sync_in = block_lane(ins[1], lane, n)
     cs, step_last, sync_last = _advance_step_block(
         state, step_in, sync_in, params["n_steps"], n)
-    # one packed select-chain lookup (note<<2 | cell); TPU gathers are
-    # scalar-slow, K=64 fused selects are not
+    # one packed table lookup (note<<2 | cell): a plain gather on a
+    # whole block (ops/basic.table_lookup)
     packed_tbl, inv_spo = _grid_packed(params)
     packed = table_lookup(packed_tbl, cs)
     cell = packed & 3
@@ -248,7 +248,7 @@ def _pat_make(cfg: AudioConfig, pattern=None, n_steps: int = None,
 def _pat_derive(cfg: AudioConfig, statics, params, connected):
     """Hoist the 8-row 2-bit packing out of the sample loop: the 7 K-wide
     multiply-adds per sample were the dominant cost of a pattern sequencer
-    inside the fused kernel (Mosaic does not LICM)."""
+    inside the voice-kernel shell."""
     return {"packed_tbl": _pat_packed(params)}
 
 

@@ -1,6 +1,6 @@
 """ctypes bindings for the native (C++) runtime components.
 
-The reference's entire runtime is native (Rust); here the TPU compute path
+The reference's entire runtime is native (Rust); here the accelerator compute path
 is JAX/XLA/Pallas and the *host-side* runtime pieces -- the execution
 planner and the audio I/O codecs -- have C++ implementations
 (native/planner.cpp, native/wav.cpp) used when available, with pure-Python

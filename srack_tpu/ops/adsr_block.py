@@ -35,10 +35,10 @@ step function can never produce (a high gate in Release immediately leaves
 the mode); such a hand-loaded state falls back to plain release semantics.
 
 NOTE on engine placement: the block engine's default classification now
-runs ADSR in the per-sample serial Pallas stage instead of through this
-module (block_engine.SERIAL_TYPES) -- at 1024 voices x 48 kHz on v5e the
-serial kernel's marginal cost is ~2 ms/s-of-audio vs ~21 ms here (the
-fixed-point classify needs ~10 full-block elementwise passes per round).
+runs ADSR in the per-sample serial stage instead of through this module
+(block_engine.SERIAL_TYPES): the envelope is ~15 ops per sample there,
+while the fixed-point classify needs ~10 full-block elementwise passes per
+round.
 This whole-block formulation remains the right tool when per-sample
 execution is unavailable or the envelope is evaluated standalone (it is
 exactly the scan engine's trajectory, oracle-verified), and it documents

@@ -9,8 +9,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from . import scan_kernel
-
 
 def transition(last_above: jnp.ndarray, val: jnp.ndarray):
     """Rising-edge detector.
@@ -35,10 +33,9 @@ def block_lane(x, lane_shape: tuple, n: int, fill=0.0,
                dtype=jnp.float32):
     """Broadcast a per-sample input to ``(n, *lane_shape)``.
 
-    Block impls run both on plain ``[n]`` arrays (vmapped host path) and on
-    ``(n, 8, 128)`` voice-lane tiles (inside the hybrid Pallas kernel);
-    ``lane_shape`` is taken from a state leaf.  ``None`` becomes a constant
-    fill (the unconnected-input fallback)."""
+    ``lane_shape`` is taken from a state leaf (``()`` under the block
+    engine's vmap over voices).  ``None`` becomes a constant fill (the
+    unconnected-input fallback)."""
     target = (n,) + lane_shape
     if x is None:
         return jnp.full(target, fill, dtype=dtype)
@@ -82,12 +79,10 @@ def _shifted(x, shift: int, axis: int, fill):
 
 
 def _log_scan(op, x, axis: int, identity):
-    """Inclusive scan by log-step doubling (Hillis-Steele).
-
-    XLA's native cumsum/cummax lower to reduce_window on TPU and are
-    catastrophically slow for long minor axes (~2 s for [1024, 48000]);
-    this runs log2(n) fused elementwise passes instead.  Exact for int
-    dtypes (associative, wrapping); for floats it reassociates the sum.
+    """Inclusive scan by log-step doubling (Hillis-Steele): log2(n) fused
+    elementwise passes.  Exact for int dtypes (associative, wrapping); for
+    floats it reassociates the sum (the block/scan parity tests' tolerances
+    cover that).
     """
     n = x.shape[axis]
     shift = 1
@@ -98,16 +93,11 @@ def _log_scan(op, x, axis: int, identity):
 
 
 def fast_cumsum(x, axis: int = -1):
-    axis = axis % x.ndim
-    if scan_kernel.eligible((x,), axis):
-        return scan_kernel.cumsum_1d(x)
-    return _log_scan(jnp.add, x, axis, 0)
+    return _log_scan(jnp.add, x, axis % x.ndim, 0)
 
 
 def fast_cummax(x, axis: int = -1):
     axis = axis % x.ndim
-    if scan_kernel.eligible((x,), axis):
-        return scan_kernel.cummax_1d(x)
     if jnp.issubdtype(x.dtype, jnp.integer):
         ident = jnp.iinfo(x.dtype).min
     else:
@@ -119,14 +109,9 @@ def forward_fill(values, mask, axis: int = -1):
     """For each position, the most recent ``values`` entry where ``mask``
     held (inclusive).  Returns ``(filled, any_valid)``.
 
-    Log-doubling "last valid value" scan -- the TPU-friendly replacement
-    for ``values[cummax(where(mask, t, -1))]``-style gathers (XLA gathers
-    run at scalar speed on TPU).
+    Log-doubling "last valid value" scan (elementwise passes, no gather).
     """
     axis = axis % values.ndim
-    if scan_kernel.eligible((values, mask), axis):
-        (filled,), ok = scan_kernel.fill_1d((values,), mask)
-        return filled, ok
     n = values.shape[axis]
     val = values
     ok = mask
@@ -163,8 +148,6 @@ def forward_fill_multi(values: tuple, mask, axis: int = -1):
     ``(filled_tuple, any_valid)``.
     """
     axis = axis % mask.ndim
-    if scan_kernel.eligible(tuple(values) + (mask,), axis):
-        return scan_kernel.fill_1d(tuple(values), mask)
     n = mask.shape[axis]
     vals = list(values)
     ok = mask
@@ -189,8 +172,6 @@ def affine_scan(a, b, axis: int = 0):
     """
     axis = axis % b.ndim
     A = jnp.broadcast_to(jnp.asarray(a, b.dtype), b.shape)
-    if scan_kernel.eligible((A, b), axis):
-        return scan_kernel.affine_1d(A, b)
     n = b.shape[axis]
     B = b
     shift = 1
@@ -209,12 +190,10 @@ def linear_recurrence(a, b, axis: int = -1):
 
     Returns ``(A, Y)`` with ``A[t] = a^(t+1)`` so the solution for an
     arbitrary initial value y0 is ``A*y0 + Y``.  Log-doubling composition
-    of the affine maps -- the TPU-parallel form of e.g. the Freeverb comb
+    of the affine maps -- the parallel form of e.g. the Freeverb comb
     damping filter."""
     axis = axis % b.ndim
     A = jnp.broadcast_to(jnp.asarray(a, b.dtype), b.shape)
-    if scan_kernel.eligible((A, b), axis):
-        return scan_kernel.affine_1d(A, b)
     n = b.shape[axis]
     Y = b
     shift = 1
@@ -228,24 +207,18 @@ def linear_recurrence(a, b, axis: int = -1):
 
 
 def table_lookup(table, idx):
-    """``table[idx]`` for a small static table via a binary select tree.
+    """``table[idx]`` for a small table; ``idx`` is int, already in [0, K).
 
-    ``table``: [K] (K static, e.g. 64 sequencer steps); ``idx``: int array
-    already in [0, K).  XLA gathers lower to scalar loops on TPU (~50M
-    elements/s); K-1 fused elementwise selects run at VPU speed instead.
-    The selects are arranged as a *tree* over the index bits rather than a
-    linear chain: the same K-1 select count, but log2(K) dependency depth
-    -- inside the fused Pallas voice kernel the per-sample chain is
-    latency-bound, so a 16-step sequencer lookup costs 4 serial steps
-    instead of 16 (round-2 verdict item 5).  Long whole-block lookups go
-    to the Pallas gather kernel (:func:`..ops.scan_kernel.gather_1d`) --
-    XLA splits a >~100-select chain into several fusions, each bouncing
-    the block through HBM; the kernel keeps the chain VMEM-resident.
+    ``table`` is ``[K]``, or inside the voice-kernel shell a list of K
+    per-voice rows.  Per sample (a scalar ``idx``, or the shell's rows) the
+    lookup is a binary select tree over the index bits: K-1 selects at
+    log2(K) dependency depth, so a 16-step sequencer costs 4 serial selects
+    on the per-sample chain, and no gather runs inside the shell.  On a
+    whole block (``idx`` with a time axis) it is a plain gather.
     """
-    k = table.shape[0]
-    if scan_kernel.gather_eligible(table, idx):
-        return scan_kernel.gather_1d(table, idx)
-    vals = [table[j] for j in range(k)]
+    if not isinstance(table, (list, tuple)) and jnp.ndim(idx) > 0:
+        return jnp.asarray(table)[idx]
+    vals = [table[j] for j in range(len(table))]
     # pad to a power of two; pad entries are never selected (idx < K)
     while len(vals) & (len(vals) - 1):
         vals.append(vals[-1])
@@ -255,14 +228,14 @@ def table_lookup(table, idx):
         vals = [jnp.where(odd, vals[2 * i + 1], vals[2 * i])
                 for i in range(len(vals) // 2)]
         bit_pos += 1
-    return jnp.broadcast_to(vals[0], idx.shape)
+    return jnp.broadcast_to(vals[0], jnp.shape(idx))
 
 
 def phase_fixed_init():
     """Fixed-point phase accumulator (fast mode): int32 whose *bit pattern*
     is a uint32 fraction of a cycle (1 ulp = 2^-32).  Two's-complement adds
-    wrap exactly mod 2^32, so long renders never drift -- and int32 is used
-    (not uint32) because Mosaic/TPU lacks f32<->u32 casts."""
+    wrap exactly mod 2^32, so long renders never drift.  int32 (not
+    uint32) keeps every conversion a signed one."""
     return jnp.asarray(0, dtype=jnp.int32)
 
 
@@ -308,8 +281,8 @@ def signed_turns(pos: jnp.ndarray) -> jnp.ndarray:
 
 
 def fast_sinpi(s: jnp.ndarray) -> jnp.ndarray:
-    """sin(pi*s) for s in [-1, 1]: 5-term odd polynomial (~10 VPU ops vs
-    the libm-grade range reduction XLA emits for sin)."""
+    """sin(pi*s) for s in [-1, 1]: 5-term odd polynomial (~10 ops vs the
+    libm-grade range reduction XLA emits for sin)."""
     z = s * s
     p = jnp.asarray(_SINPI_ODD[4], s.dtype)
     for k in (3, 2, 1, 0):
@@ -321,8 +294,8 @@ def fast_exp2(x: jnp.ndarray) -> jnp.ndarray:
     """2**x: deg-6 polynomial on the fractional part + exponent-bit scale.
 
     The integer part becomes float exponent bits directly (a bitcast, not a
-    value conversion -- Mosaic legalizes it); inputs are clamped to the
-    normal-number range, generous for audio pitch CV."""
+    value conversion); inputs are clamped to the normal-number range,
+    generous for audio pitch CV."""
     x = jnp.clip(x, -126.0, 126.0)
     xi = jnp.floor(x)
     f = x - xi
@@ -354,7 +327,7 @@ def poly_blep(t: jnp.ndarray, dt: jnp.ndarray) -> jnp.ndarray:
 
 
 def poly_blep_signed(u: jnp.ndarray) -> jnp.ndarray:
-    """polyBLEP in the *signed-phase* domain: 7 VPU ops vs ~15.
+    """polyBLEP in the *signed-phase* domain: 7 ops vs ~15.
 
     ``u`` is the signed distance from the discontinuity in units of dt:
     ``u = s * (0.5 / dt)`` where s is the signed-turns phase (discontinuity

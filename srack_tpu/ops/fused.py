@@ -1,47 +1,26 @@
-"""Fused Pallas voice kernel: the whole patch per-sample step in VMEM.
+"""Whole-patch voice render in the voice-kernel shell.
 
-The scan engine (compiler.py) is correct everywhere but pays XLA's
-per-iteration loop/dispatch overhead 48,000 times a second; measured on a
-v5e that caps out around 1.2 G samples/s.  This kernel removes the
-bottleneck for "register-friendly" patches (oscillators, filters,
-envelopes, VCAs, mixers, math -- i.e. BASELINE configs 1/2/4/5):
-
-* voices live on the VPU lanes: every per-voice scalar is an (8, 128)
-  vector register tile (1024 voices per grid step);
-* the sample loop runs *inside* the kernel (``fori_loop``), so per-sample
-  cost is raw VPU work -- module state never leaves registers between
-  samples, with zero HBM traffic except hoisted noise/driver lanes in and
-  rendered audio out;
-* module state persists across time chunks in VMEM scratch (grid is
-  (voice_tiles, time_chunks), scratch carries tile state between chunks);
-* it is *the same module code*: the kernel body calls the compiler's
-  ``_sample_step`` -- module ``step`` functions are shape-polymorphic jnp,
-  so the "scalars" are simply (8, 128) tiles inside Pallas.
-
-Layout: a batched leaf ``[V, *rest]`` becomes ``[*rest, V_tiles, 8, 128]``
-(voice axis innermost so elementwise ops vectorise); bool state is carried
-as int32 (VMEM has no bools).
+The scan engine (compiler.py) is correct everywhere but runs one XLA loop
+iteration per sample.  For "register-friendly" patches (oscillators,
+filters, envelopes, VCAs, mixers, math, sequencers) the whole per-sample
+step -- the compiler's ``_sample_step``, the same module code -- runs
+inside one kernel (ops/shell.py) with every module's state in registers,
+so the only memory traffic is hoisted noise/driver lanes in and rendered
+audio out.
 """
 
 from __future__ import annotations
 
-import math
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..modules.base import CV_DTYPE
-
-LANES = 128
-SUBLANES = 8
-TILE_VOICES = LANES * SUBLANES  # 1024
+from . import shell
 
 # module types whose per-sample step is pure register math (no per-voice
 # table gathers, no ragged delay lines).  The sequencers qualify because
-# their table reads are K-way select chains over the carried step counter
-# (modules/sequencer.py), not gathers.
+# their table reads are select trees over the carried step counter
+# (ops/basic.table_lookup), not gathers.
 REGISTER_TYPES = frozenset({
     "Oscillator", "Noise", "Input", "Moog Filter", "ADSR", "VCA",
     "Mono Mixer", "Add", "Subtract", "Multiply", "Non-Linear", "Output",
@@ -50,480 +29,111 @@ REGISTER_TYPES = frozenset({
 
 
 def eligible(compiled) -> bool:
-    """Can this compiled patch run on the fused kernel?  (buffer-feedback
-    compat mode runs via :func:`make_fused_render_buffer`.)"""
+    """Can this compiled patch run in the voice-kernel shell?  (Buffer-
+    feedback compat mode runs via :func:`make_fused_render_buffer`.)"""
     if compiled.cfg.exact or compiled.probes:
         return False
     return all(mdef.type_name in REGISTER_TYPES or mdef.register_safe
                for mdef, _, _ in compiled.instances.values())
 
 
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
+def default_unroll(compiled) -> int:
+    # big patches inline every unrolled copy of a big body: the sequencer
+    # preset (~30 modules) took 163 s to compile at unroll 4 on an H100
+    return 8 if len(compiled.instances) <= 16 else 2
 
 
-def _to_tiles(leaf, v, vp):
-    """[V, *rest] -> [*rest, V_tiles, 8, 128] (+ bool -> int32)."""
-    if leaf.dtype == jnp.bool_:
-        leaf = leaf.astype(jnp.int32)
-    rest = leaf.shape[1:]
-    if vp != v:
-        leaf = jnp.concatenate(
-            [leaf, jnp.zeros((vp - v,) + rest, leaf.dtype)], axis=0)
-    # [Vp, *rest] -> [*rest, Vp] -> [*rest, tiles, 8, 128]
-    leaf = jnp.moveaxis(leaf, 0, -1)
-    return leaf.reshape(rest + (vp // TILE_VOICES, SUBLANES, LANES))
+def channel_keys(compiled):
+    return [f"out{c}" for c in range(compiled.cfg.channels)]
 
 
-def _from_tiles(leaf, v, dtype):
-    """Inverse of :func:`_to_tiles`."""
-    rest = leaf.shape[:-3]
-    vp = leaf.shape[-3] * TILE_VOICES
-    leaf = leaf.reshape(rest + (vp,))
-    leaf = jnp.moveaxis(leaf, -1, 0)[:v]
-    return leaf.astype(dtype)
+def hoisted_lanes(compiled, params, keys, drivers, n: int) -> dict:
+    """Noise/driver/automation lanes ``{key: [V, n]}``, computed outside
+    the kernel (``jax.random`` stays in XLA)."""
+    xs = jax.vmap(lambda p, k: compiled._make_xs(p, k, n, drivers={}))(
+        params, keys)
+    for mid, arr in (drivers or {}).items():
+        xs[mid] = jnp.asarray(arr, dtype=CV_DTYPE)
+    return xs
 
 
-def make_fused_render(compiled, n: int, t_chunk: int = 256,
-                      unroll: int = None, interpret: bool = None,
-                      auto_chunk: bool = True):
-    # defaults from the (unroll, t_chunk) sweep (scripts/sweep_fused.py,
-    # v5e, subtractive voice @1024 lanes): (32, 256) runs 42.9
-    # cycles/sample vs 59.7 for the old (8, 512) -- deeper unroll exposes
-    # more cross-sample ILP and the smaller chunk halves the VMEM streaming
-    # working set.  unroll=64 adds <1% throughput over 32 (91.1 vs
-    # 91.5 ms on the 30 s headline) but its Mosaic compile is minutes vs
-    # seconds (round-2 bench: 390 s cold; scripts/cold32.py: 8 s at 32) --
-    # 32 is the compile-latency/throughput frontier (round-3 item 7).
-    # Big patches inline unroll copies of a big body: past ~16 modules the
-    # deeper unroll measures neutral (sequencer: 146.3 vs 148.9 ms) while
-    # Mosaic compile time grows, so auto-unroll backs off to 16 there.
-    if unroll is None:
-        unroll = 32 if len(compiled.instances) <= 16 else 16
-    """Build the fused batched render fn for ``compiled`` over ``n`` samples.
+def make_fused_render(compiled, n: int, *, unroll: int = None,
+                      interpret: bool = False):
+    """The batched render ``(params, state, keys, drivers) -> (audio[V, C,
+    n], {}, final_state)`` in the shell (same contract as
+    ``make_render_fn(n, batched=True)``)."""
+    out_keys = channel_keys(compiled)
+    unroll = unroll or default_unroll(compiled)
 
-    Returned callable matches ``make_render_fn(n, batched=True)``:
-    ``(params, state, keys, drivers) -> (audio[V,C,n], {}, final_state)``.
-    """
-    cfg = compiled.cfg
-    # don't pad a short render out to a full default chunk
-    t_chunk = min(t_chunk, _ceil_to(n, unroll))
-    if n % t_chunk and auto_chunk:
-        # prefer a chunk size that divides n: the padded-tail path needs an
-        # in-loop final-state snapshot that costs ~17 cycles/sample of lost
-        # pipelining.  Every 48kHz-second render has a divisor here; truly
-        # pathological n (primes) keep the snapshot fallback.
-        # multiples of 16 only, so the unroll depth stays >= 16 (shallow
-        # unrolls measured much slower, scripts/sweep_fused.py)
-        for tc in (256, 240, 224, 208, 192, 176, 160, 144, 128, 112, 96,
-                   80, 64, 48, 32, 16):
-            if tc <= t_chunk and n % tc == 0:
-                t_chunk = tc
-                break
-    if t_chunk % unroll:
-        # keep the deepest unroll that divides the chunk (the old
-        # halve-to-1 fallback for e.g. unroll=24 threw away all the
-        # cross-sample ILP -- measured 8.8 vs 16 G on the headline)
-        unroll = math.gcd(unroll, t_chunk) or 1
-    np_ = _ceil_to(n, t_chunk)
-    n_chunks = np_ // t_chunk
-    n_channels = cfg.channels
-    xs_mids = compiled.xs_modules
-    if interpret is None:
-        # interpreter mode lets the kernel run (slowly) off-TPU for tests
-        interpret = jax.default_backend() != "tpu"
+    def step(params, state, x_t):
+        new_states, fb_out, channels, _ = compiled._sample_step(
+            params, state["states"], state["fb"], x_t, nograd=True)
+        return ({"states": new_states, "fb": fb_out},
+                dict(zip(out_keys, channels)))
 
     def run(params, state, keys, drivers):
-        v = jax.tree.leaves(params)[0].shape[0]
-        vp = _ceil_to(max(v, 1), TILE_VOICES)
-        n_tiles = vp // TILE_VOICES
-
-        # hoisted per-sample lanes (noise, drivers), padded to np_
-        def one_xs(p, k):
-            return compiled._make_xs(p, k, n, drivers={})
-        xs = jax.vmap(one_xs)(params, keys)  # {mid: [V, n]}
-        for mid_h, arr in (drivers or {}).items():
-            xs[mid_h] = jnp.asarray(arr, dtype=CV_DTYPE)
-        if np_ != n:
-            xs = {m: jnp.pad(a, ((0, 0), (0, np_ - n))) for m, a in xs.items()}
-        # [V, T] -> [T, tiles, 8, 128] (rest dims first, voice tiles last)
-        xs_t = {m: _to_tiles(a, v, vp) for m, a in xs.items()}
-
-        params = compiled.derived_params(params)
-        params_leaves, params_def = jax.tree.flatten(params)
-        state_leaves, state_def = jax.tree.flatten(state)
-        p_dtypes = [l.dtype for l in params_leaves]
-        s_dtypes = [l.dtype for l in state_leaves]
-        p_tiled = [_to_tiles(l, v, vp) for l in params_leaves]
-        s_tiled = [_to_tiles(l, v, vp) for l in state_leaves]
-        xs_keys = sorted(xs_t)
-        xs_tiled = [xs_t[m] for m in xs_keys]
-
-        n_p, n_s, n_x = len(p_tiled), len(s_tiled), len(xs_tiled)
-
-        def kernel(*refs):
-            p_refs = refs[:n_p]
-            s_refs = refs[n_p:n_p + n_s]
-            x_refs = refs[n_p + n_s:n_p + n_s + n_x]
-            audio_refs = refs[n_p + n_s + n_x:n_p + n_s + n_x + n_channels]
-            sout_refs = refs[n_p + n_s + n_x + n_channels:
-                             n_p + n_s + n_x + n_channels + n_s]
-            scratches = refs[n_p + n_s + n_x + n_channels + n_s:]
-
-            t = pl.program_id(1)
-
-            @pl.when(t == 0)
-            def _():
-                for sc, sr in zip(scratches, s_refs):
-                    sc[...] = sr[...].reshape(sc.shape)
-
-            def squeeze_tile(x):
-                # [*rest, 1, 8, 128] -> [*rest, 8, 128]
-                return x.reshape(x.shape[:-3] + (SUBLANES, LANES))
-
-            p_vals = [squeeze_tile(r[...]).astype(d)
-                      for r, d in zip(p_refs, p_dtypes)]
-            params_k = jax.tree.unflatten(params_def, p_vals)
-
-            # loop carries stay int32-or-wider (bool i1 vectors fail to
-            # legalize in Mosaic's scf.for); cast at each iteration edge
-            carry0 = tuple(sc[...] for sc in scratches)
-            tile = (SUBLANES, LANES)
-
-            def body(u, carry, x_rows):
-                vals = [c.astype(d) if d == jnp.bool_ else c
-                        for c, d in zip(carry, s_dtypes)]
-                st = jax.tree.unflatten(state_def, vals)
-                x_t = {m: x_rows[j][u] for j, m in enumerate(xs_keys)}
-                new_states, fb_out, audio, _ = compiled._sample_step(
-                    params_k, st["states"], st["fb"], x_t, nograd=True)
-                new_state = {"states": new_states, "fb": fb_out}
-                # a state leaf fed by an unconnected (constant) input can
-                # collapse to a scalar; broadcast back to the lane tile,
-                # and store bools as int32
-                out = []
-                for leaf, ref in zip(jax.tree.leaves(new_state), carry):
-                    leaf = jnp.broadcast_to(leaf, ref.shape)
-                    out.append(leaf.astype(ref.dtype))
-                return tuple(out), audio
-
-            # the final-state snapshot must be taken at sample n-1, NOT at
-            # the end of the (padded) last chunk -- the kernel keeps
-            # running through the zero-padded tail (audio there is trimmed
-            # by the caller) and letting state advance through it would
-            # corrupt render continuity.  All indices are static, and the
-            # in-loop conditional write is only emitted when padding exists
-            # (it measurably degrades Mosaic's loop pipelining, ~17
-            # cycles/sample on the headline -- aligned renders keep the
-            # branch-free post-loop write).
-            pad_needed = np_ != n
-            tc_tgt = (n - 1) // t_chunk
-            j_tgt, u_tgt = divmod((n - 1) % t_chunk, unroll)
-
-            # manual unrolling (Pallas fori_loop can't partially unroll)
-            # exposes cross-sample ILP: the transcendental-heavy oscillator
-            # work for sample t+1 overlaps the filter/envelope recurrences
-            # of sample t.  Streamed lanes are read/written once per unroll
-            # group (fewer dynamic VMEM accesses; measured neutral-to-small
-            # vs per-sample accesses -- Mosaic pipelines both well).
-            def body_u(j, carry):
-                base = j * unroll
-                x_rows = [x_refs[k][pl.ds(base, unroll), 0]
-                          for k in range(n_x)]
-                auds = []
-                for u in range(unroll):
-                    carry, audio = body(u, carry, x_rows)
-                    auds.append(audio)
-                    if pad_needed and u == u_tgt:
-                        snap = tuple(carry)
-
-                        @pl.when(jnp.logical_and(t == tc_tgt, j == j_tgt))
-                        def _():
-                            for val, sr in zip(snap, sout_refs):
-                                sr[...] = val.reshape(sr.shape)
-                for c in range(n_channels):
-                    audio_refs[c][pl.ds(base, unroll), 0] = jnp.stack(
-                        [jnp.broadcast_to(a[c], tile).astype(CV_DTYPE)
-                         for a in auds])
-                return carry
-
-            carry = jax.lax.fori_loop(0, t_chunk // unroll, body_u, carry0)
-            for sc, val in zip(scratches, carry):
-                sc[...] = val.reshape(sc.shape)
-            if not pad_needed:
-                for sc, sr in zip(scratches, sout_refs):
-                    sr[...] = sc[...].reshape(sr.shape)
-
-        def tile_spec(leaf):
-            rest = leaf.shape[:-3]
-            block = rest + (1, SUBLANES, LANES)
-            zeros = (0,) * len(rest)
-            return pl.BlockSpec(
-                block, lambda vtile, t, z=zeros: z + (vtile, 0, 0),
-                memory_space=pltpu.VMEM)
-
-        def xs_spec(leaf):
-            return pl.BlockSpec(
-                (t_chunk, 1, SUBLANES, LANES),
-                lambda vtile, t: (t, vtile, 0, 0),
-                memory_space=pltpu.VMEM)
-
-        audio_spec = pl.BlockSpec(
-            (t_chunk, 1, SUBLANES, LANES),
-            lambda vtile, t: (t, vtile, 0, 0),
-            memory_space=pltpu.VMEM)
-
-        in_specs = ([tile_spec(l) for l in p_tiled]
-                    + [tile_spec(l) for l in s_tiled]
-                    + [xs_spec(l) for l in xs_tiled])
-        out_specs = ([audio_spec] * n_channels
-                     + [tile_spec(l) for l in s_tiled])
-        out_shape = (
-            [jax.ShapeDtypeStruct((np_, n_tiles, SUBLANES, LANES), CV_DTYPE)
-             for _ in range(n_channels)]
-            + [jax.ShapeDtypeStruct(l.shape, l.dtype) for l in s_tiled])
-        scratch_shapes = [
-            pltpu.VMEM(l.shape[:-3] + (SUBLANES, LANES), l.dtype)
-            for l in s_tiled]
-
-        outs = pl.pallas_call(
-            kernel,
-            grid=(n_tiles, n_chunks),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            scratch_shapes=scratch_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary", "arbitrary")),
-            interpret=interpret,
-        )(*p_tiled, *s_tiled, *xs_tiled)
-
-        audio_t = outs[:n_channels]
-        s_out = outs[n_channels:]
-        # [T, tiles, 8, 128] -> [V, T] -> trim padding
-        chans = [_from_tiles(a, v, CV_DTYPE)[:, :n] for a in audio_t]
-        audio = jnp.stack(chans, axis=1)
-        final_leaves = [_from_tiles(l, v, d)
-                        for l, d in zip(s_out, s_dtypes)]
-        final_state = jax.tree.unflatten(state_def, final_leaves)
-        return audio, {}, final_state
+        xs = hoisted_lanes(compiled, params, keys, drivers, n)
+        outs, final = shell.run(step, n, compiled.derived_params(params),
+                                state, xs, out_keys, unroll=unroll,
+                                interpret=interpret)
+        return jnp.stack([outs[k] for k in out_keys], axis=1), {}, final
 
     return run
 
 
-def make_fused_render_buffer(compiled, n: int, t_chunk: int = 256,
-                             unroll: int = None, interpret: bool = None):
-    """Buffer-feedback compat mode on the fused voice kernel.
+def make_fused_render_buffer(compiled, n: int, *, unroll: int = None,
+                             interpret: bool = False):
+    """Buffer-feedback compat mode in the shell.
 
     The reference's previous-*buffer* feedback timing (synth.rs:168-192)
-    needs each feedback read delayed by ``block_size`` samples -- too much
-    history for registers.  Instead the kernel runs one block per
-    invocation with the previous block's fb wires streamed in like xs lanes
-    and this block's fb values streamed out; an outer ``lax.scan`` chains
-    blocks (state round-trips HBM once per block: ~KBs, negligible).
+    delays each feedback read by ``block_size`` samples -- too much history
+    for registers.  Instead the shell runs one block per call with the
+    previous block's fb wires streamed in like hoisted lanes and this
+    block's fb values streamed out; an outer ``lax.scan`` chains blocks.
     """
     cfg = compiled.cfg
-    if unroll is None:  # same size-aware default as make_fused_render
-        unroll = 64 if len(compiled.instances) <= 16 else 16
     block = cfg.block_size
     if n % block != 0:
         raise ValueError(
             f"buffer_feedback mode renders whole blocks: n={n} is not a "
             f"multiple of block_size={block}")
     n_blocks = n // block
-    t_chunk = min(t_chunk, block)
-    if block % t_chunk:
-        # t_chunk must divide the block: a padded tail would advance module
-        # state past the block boundary *every block* (compounding), since
-        # the outer scan re-enters the kernel with the carried state
-        t_chunk = block
-    if t_chunk % unroll:
-        # keep the deepest unroll that divides the chunk (the old
-        # halve-to-1 fallback for e.g. unroll=24 threw away all the
-        # cross-sample ILP -- measured 8.8 vs 16 G on the headline)
-        unroll = math.gcd(unroll, t_chunk) or 1
-    bp = _ceil_to(block, t_chunk)
-    n_chunks = bp // t_chunk
-    assert bp == block
-    n_channels = cfg.channels
+    chan_keys = channel_keys(compiled)
     fb_keys = sorted(compiled.fb_keys)
-    n_fb = len(fb_keys)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    fb_names = {k: f"fb:{k[0]}#{k[1]}" for k in fb_keys}
+    unroll = unroll or default_unroll(compiled)
+
+    def step(params, states, x_t):
+        fb_t = {k: x_t[fb_names[k]] for k in fb_keys}
+        new_states, fb_out, channels, _ = compiled._sample_step(
+            params, states, fb_t, x_t, nograd=True)
+        outs = dict(zip(chan_keys, channels))
+        outs.update({fb_names[k]: fb_out[k] for k in fb_keys})
+        return new_states, outs
 
     def run(params, state, keys, drivers):
-        v = jax.tree.leaves(params)[0].shape[0]
-        vp = _ceil_to(max(v, 1), TILE_VOICES)
-        n_tiles = vp // TILE_VOICES
-
-        def one_xs(p, k):
-            return compiled._make_xs(p, k, n, drivers={})
-        xs = jax.vmap(one_xs)(params, keys)  # {mid: [V, n]}
-        for mid_h, arr in (drivers or {}).items():
-            xs[mid_h] = jnp.asarray(arr, dtype=CV_DTYPE)
-        xs_keys = sorted(xs)
-        # [V, n] -> [n_blocks, bp(padded), tiles, 8, 128]
-        def blocked(a):
-            t = _to_tiles(a, v, vp)  # [n, tiles, 8, 128]
-            t = t.reshape((n_blocks, block) + t.shape[1:])
-            if bp != block:
-                pad = [(0, 0)] * t.ndim
-                pad[1] = (0, bp - block)
-                t = jnp.pad(t, pad)
-            return t
-        xs_tiled = [blocked(xs[m]) for m in xs_keys]
-
+        xs = hoisted_lanes(compiled, params, keys, drivers, n)
         params = compiled.derived_params(params)
-        params_leaves, params_def = jax.tree.flatten(params)
-        states_leaves, states_def = jax.tree.flatten(state["states"])
-        p_dtypes = [l.dtype for l in params_leaves]
-        s_dtypes = [l.dtype for l in states_leaves]
-        p_tiled = [_to_tiles(l, v, vp) for l in params_leaves]
-        s_tiled0 = tuple(_to_tiles(l, v, vp) for l in states_leaves)
-        # fb lanes [V, block] -> [bp, tiles, 8, 128]
-        def fb_tiles(a):
-            t = _to_tiles(a, v, vp)
-            if bp != block:
-                pad = [(0, 0)] * t.ndim
-                pad[0] = (0, bp - block)
-                t = jnp.pad(t, pad)
-            return t
-        fb_tiled0 = tuple(fb_tiles(state["fb"][k]) for k in fb_keys)
 
-        n_p, n_s, n_x = len(p_tiled), len(s_tiled0), len(xs_tiled)
-
-        def kernel(*refs):
-            p_refs = refs[:n_p]
-            s_refs = refs[n_p:n_p + n_s]
-            x_refs = refs[n_p + n_s:n_p + n_s + n_x]
-            fb_refs = refs[n_p + n_s + n_x:n_p + n_s + n_x + n_fb]
-            base = n_p + n_s + n_x + n_fb
-            audio_refs = refs[base:base + n_channels]
-            fbout_refs = refs[base + n_channels:base + n_channels + n_fb]
-            sout_refs = refs[base + n_channels + n_fb:
-                             base + n_channels + n_fb + n_s]
-            scratches = refs[base + n_channels + n_fb + n_s:]
-
-            t = pl.program_id(1)
-
-            @pl.when(t == 0)
-            def _():
-                for sc, sr in zip(scratches, s_refs):
-                    sc[...] = sr[...].reshape(sc.shape)
-
-            def squeeze_tile(x):
-                return x.reshape(x.shape[:-3] + (SUBLANES, LANES))
-
-            p_vals = [squeeze_tile(r[...]).astype(d)
-                      for r, d in zip(p_refs, p_dtypes)]
-            params_k = jax.tree.unflatten(params_def, p_vals)
-            carry0 = tuple(sc[...] for sc in scratches)
-
-            tile = (SUBLANES, LANES)
-
-            def body(u, carry, x_rows, fb_rows):
-                vals = [c.astype(d) if d == jnp.bool_ else c
-                        for c, d in zip(carry, s_dtypes)]
-                st = jax.tree.unflatten(states_def, vals)
-                x_t = {m: x_rows[j][u] for j, m in enumerate(xs_keys)}
-                fb_t = {k: fb_rows[j][u] for j, k in enumerate(fb_keys)}
-                new_states, fb_out, audio, _ = compiled._sample_step(
-                    params_k, st, fb_t, x_t, nograd=True)
-                out = []
-                for leaf, ref in zip(jax.tree.leaves(new_states), carry):
-                    out.append(jnp.broadcast_to(leaf, ref.shape)
-                               .astype(ref.dtype))
-                return tuple(out), audio, fb_out
-
-            # streamed lanes read/written once per unroll group (see
-            # make_fused_render)
-            def body_u(j, carry):
-                base_i = j * unroll
-                x_rows = [x_refs[k][pl.ds(base_i, unroll), 0]
-                          for k in range(n_x)]
-                fb_rows = [fb_refs[k][pl.ds(base_i, unroll), 0]
-                           for k in range(n_fb)]
-                auds, fbs = [], []
-                for u in range(unroll):
-                    carry, audio, fb_out = body(u, carry, x_rows, fb_rows)
-                    auds.append(audio)
-                    fbs.append(fb_out)
-                for c in range(n_channels):
-                    audio_refs[c][pl.ds(base_i, unroll), 0] = jnp.stack(
-                        [jnp.broadcast_to(a[c], tile).astype(CV_DTYPE)
-                         for a in auds])
-                for j2, k in enumerate(fb_keys):
-                    fbout_refs[j2][pl.ds(base_i, unroll), 0] = jnp.stack(
-                        [jnp.broadcast_to(f[k], tile).astype(CV_DTYPE)
-                         for f in fbs])
-                return carry
-
-            carry = jax.lax.fori_loop(0, t_chunk // unroll, body_u, carry0)
-            for sc, val, sr in zip(scratches, carry, sout_refs):
-                sc[...] = val.reshape(sc.shape)
-                sr[...] = sc[...].reshape(sr.shape)
-
-        def tile_spec(leaf):
-            rest = leaf.shape[:-3]
-            blk = rest + (1, SUBLANES, LANES)
-            zeros = (0,) * len(rest)
-            return pl.BlockSpec(
-                blk, lambda vtile, tc, z=zeros: z + (vtile, 0, 0),
-                memory_space=pltpu.VMEM)
-
-        def lane_spec():
-            return pl.BlockSpec(
-                (t_chunk, 1, SUBLANES, LANES),
-                lambda vtile, tc: (tc, vtile, 0, 0),
-                memory_space=pltpu.VMEM)
-
-        in_specs = ([tile_spec(l) for l in p_tiled]
-                    + [tile_spec(l) for l in s_tiled0]
-                    + [lane_spec() for _ in range(n_x + n_fb)])
-        out_specs = ([lane_spec()] * (n_channels + n_fb)
-                     + [tile_spec(l) for l in s_tiled0])
-        out_shape = (
-            [jax.ShapeDtypeStruct((bp, n_tiles, SUBLANES, LANES), CV_DTYPE)
-             for _ in range(n_channels + n_fb)]
-            + [jax.ShapeDtypeStruct(l.shape, l.dtype) for l in s_tiled0])
-        scratch_shapes = [
-            pltpu.VMEM(l.shape[:-3] + (SUBLANES, LANES), l.dtype)
-            for l in s_tiled0]
-
-        call = pl.pallas_call(
-            kernel,
-            grid=(n_tiles, n_chunks),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            scratch_shapes=scratch_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary", "arbitrary")),
-            interpret=interpret,
-        )
+        def blocked(a):  # [V, n] -> [n_blocks, V, block]
+            return jnp.moveaxis(a.reshape(a.shape[0], n_blocks, block), 1, 0)
 
         def outer(carry, xs_b):
-            s_t, fb_t = carry
-            outs = call(*p_tiled, *s_t, *xs_b, *fb_t)
-            audio_b = outs[:n_channels]
-            fb_new = tuple(outs[n_channels:n_channels + n_fb])
-            s_new = tuple(outs[n_channels + n_fb:])
-            return (s_new, fb_new), tuple(audio_b)
+            states, fb = carry
+            lanes = dict(xs_b)
+            lanes.update({fb_names[k]: fb[k] for k in fb_keys})
+            outs, states = shell.run(
+                step, block, params, states, lanes,
+                chan_keys + [fb_names[k] for k in fb_keys], unroll=unroll,
+                interpret=interpret)
+            audio_b = jnp.stack([outs[k] for k in chan_keys], axis=1)
+            return (states, {k: outs[fb_names[k]] for k in fb_keys}), audio_b
 
-        (s_fin, fb_fin), audio_bt = jax.lax.scan(
-            outer, (s_tiled0, fb_tiled0), tuple(xs_tiled),
-            length=n_blocks)
-        # audio_bt: n_channels x [n_blocks, bp, tiles, 8, 128]
-        chans = []
-        for a in audio_bt:
-            a = a[:, :block].reshape((n,) + a.shape[2:])
-            chans.append(_from_tiles(a, v, CV_DTYPE))
-        audio = jnp.stack(chans, axis=1)
-        final_states = jax.tree.unflatten(
-            states_def,
-            [_from_tiles(l, v, d) for l, d in zip(s_fin, s_dtypes)])
-        final_fb = {k: _from_tiles(l[:block], v, CV_DTYPE)
-                    for k, l in zip(fb_keys, fb_fin)}
-        return audio, {}, {"states": final_states, "fb": final_fb}
+        (states_f, fb_f), ys = jax.lax.scan(
+            outer, (state["states"], state["fb"]),
+            {k: blocked(a) for k, a in xs.items()}, length=n_blocks)
+        # ys: [n_blocks, V, C, block] -> [V, C, n]
+        audio = jnp.moveaxis(ys, 0, 2).reshape(ys.shape[1], ys.shape[2], n)
+        return audio, {}, {"states": states_f, "fb": fb_f}
 
     return run

@@ -1,562 +1,47 @@
-"""Kernel-speed gradients: Pallas forward AND backward passes.
+"""Kernel-speed gradients: the voice-kernel shell forward AND backward.
 
-``jax.grad`` through the scan engine works but runs at scan speed; this
-module gives register-friendly patches a ``custom_vjp`` whose both sides
-are Pallas kernels:
+``jax.grad`` through the scan engine works but runs one XLA loop iteration
+per sample, forward and backward.  For register-friendly patches
+(ops/fused.REGISTER_TYPES) this wraps the whole-patch step in
+:func:`ops.shell.differentiable`: the forward is the shell kernel, also
+checkpointing the module state every ``shell.CHUNK`` samples; the backward
+is the shell's reverse-sweep kernel (recompute each chunk from its
+checkpoint, then run the per-sample VJP backwards through it).
 
-* **forward**: the fused voice kernel, additionally emitting the module
-  state at every chunk boundary (the checkpointing residual -- tiny:
-  states are scalars per voice, not per sample);
-* **backward**: a reverse-chunk-order kernel that *recomputes* the forward
-  within each chunk from its boundary state (two-level: VMEM scratch holds
-  one state row per ``bwd_unroll`` group; the group's per-sample states
-  recompute in registers during the reverse sweep) and then runs the
-  per-sample VJP backwards through the chunk, accumulating parameter
-  cotangents in registers.
-
-Discrete state (envelope mode ints, edge-detector bools, fixed-point phase
-ints) is treated as constants in the linearisation -- the mathematically
-correct treatment of discrete variables (zero derivative a.e.); their
-primal values come from the in-kernel recompute.
-
-Scope: fused-eligible patches (ops/fused.REGISTER_TYPES), batched, fast
-precision.  Driver/noise-lane cotangents are not produced (zeros).
+Scope: fused-eligible patches, batched, fast precision.  Driver and noise
+lanes get zero cotangents.
 """
 
 from __future__ import annotations
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
-from jax import dtypes as jax_dtypes
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..modules.base import CV_DTYPE
-from .serial_kernel import (LANES, SUBLANES, TILE_VOICES, ceil_to,
-                            from_tiles, to_tiles)
+from . import fused, shell
 
 
-def _zero_ct(x):
-    """Zero cotangent: float0 for integer/bool primals (jax's tangent type
-    for discrete values), ordinary zeros for floats."""
-    if jnp.issubdtype(jnp.asarray(x).dtype, jnp.floating):
-        return jnp.zeros_like(x)
-    return np.zeros(jnp.shape(x), jax_dtypes.float0)
+def make_fused_vjp(compiled, n: int, *, unroll: int = 4,
+                   interpret: bool = False):
+    """A differentiable batched render ``fn(params, state, keys, drivers)
+    -> (audio[V, C, n], {}, final_state)`` with gradients flowing to float
+    params and float initial-state leaves."""
+    out_keys = fused.channel_keys(compiled)
 
+    def step(params, state, x_t):
+        new_states, fb_out, channels, _ = compiled._sample_step(
+            params, state["states"], state["fb"], x_t)
+        return ({"states": new_states, "fb": fb_out},
+                dict(zip(out_keys, channels)))
 
-def pack_lanes(x):
-    """[V, C, n] -> the kernels' native packed layout
-    [n, C, V_tiles, 8, 128].  Train against packed targets to skip the
-    [V, n] <-> tiled transposes around the custom_vjp (the transpose and
-    its JVP measured ~8.5 ms of a ~17 ms grad step at 1024 x 48k,
-    scripts/r5_tpu_batch6.py device trace)."""
-    v = x.shape[0]
-    vp = ceil_to(max(v, 1), TILE_VOICES)
-    return jnp.stack([to_tiles(x[:, c], v, vp)
-                      for c in range(x.shape[1])], axis=1)
+    core = shell.differentiable(step, n, out_keys, unroll=unroll,
+                                interpret=interpret)
 
-
-def make_fused_vjp(compiled, n: int, t_chunk: int = 128, unroll: int = 4,
-                   bwd_unroll: int = 8, interpret: bool = None,
-                   packed_audio: bool = False):
-    """Build a differentiable batched render with Pallas fwd + bwd.
-
-    Returns ``fn(params, state, keys, drivers) -> (audio, {}, final_state)``
-    with gradients flowing to float params and float initial-state leaves.
-
-    ``bwd_unroll`` manually unrolls the backward kernel's two per-sample
-    loops (the in-chunk forward recompute and the reverse VJP sweep) --
-    Mosaic's ``fori_loop`` only supports unroll=1/full, and the unrolled
-    bodies dual-issue like the forward's (scripts/sweep_vjp.py: 8 beat 1
-    by ~1.6x on the subtractive voice at 1024x48k).
-    """
-    cfg = compiled.cfg
-    np_ = ceil_to(n, t_chunk)
-    n_chunks = np_ // t_chunk
-    n_ch = cfg.channels
-    if t_chunk % bwd_unroll:
-        raise ValueError(f"bwd_unroll={bwd_unroll} must divide "
-                         f"t_chunk={t_chunk}")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    def step_full(params_k, state_k, x_t):
-        new_states, fb_out, audio, _ = compiled._sample_step(
-            params_k, state_k["states"], state_k["fb"], x_t)
-        return {"states": new_states, "fb": fb_out}, audio  # audio: (C,8,128)
-
-    # ---------------------------------------------------------------- fwd --
-
-    def fwd_pallas(p_tiled, s_tiled, xs_tiled, meta):
-        (params_def, p_dtypes, state_def, s_dtypes, xs_keys, n_tiles) = meta
-        n_p, n_s, n_x = len(p_tiled), len(s_tiled), len(xs_tiled)
-
-        def kernel(*refs):
-            p_refs = refs[:n_p]
-            s_refs = refs[n_p:n_p + n_s]
-            x_refs = refs[n_p + n_s:n_p + n_s + n_x]
-            audio_ref = refs[n_p + n_s + n_x]
-            sout_refs = refs[n_p + n_s + n_x + 1:n_p + n_s + n_x + 1 + n_s]
-            bnd_refs = refs[n_p + n_s + n_x + 1 + n_s:
-                            n_p + n_s + n_x + 1 + 2 * n_s]
-            scratches = refs[n_p + n_s + n_x + 1 + 2 * n_s:]
-
-            t = pl.program_id(1)
-
-            @pl.when(t == 0)
-            def _():
-                for sc, sr in zip(scratches, s_refs):
-                    sc[...] = sr[...].reshape(sc.shape)
-
-            # checkpoint: state at this chunk's start
-            for br, sc in zip(bnd_refs, scratches):
-                br[...] = sc[...].reshape(br.shape)
-
-            def squeeze(x):
-                return x.reshape(x.shape[:-3] + (SUBLANES, LANES))
-
-            p_vals = [squeeze(r[...]).astype(d)
-                      for r, d in zip(p_refs, p_dtypes)]
-            params_k = jax.tree.unflatten(params_def, p_vals)
-            carry0 = tuple(sc[...] for sc in scratches)
-
-            def body(i, carry):
-                vals = [c.astype(d) if d == jnp.bool_ else c
-                        for c, d in zip(carry, s_dtypes)]
-                st = jax.tree.unflatten(state_def, vals)
-                x_t = {k: x_refs[j][i, 0] for j, k in enumerate(xs_keys)}
-                new_state, audio = step_full(params_k, st, x_t)
-                audio_ref[i, :, 0] = jnp.stack(
-                    [jnp.broadcast_to(audio[c], (SUBLANES, LANES))
-                     for c in range(n_ch)]).astype(CV_DTYPE)
-                return tuple(
-                    jnp.broadcast_to(leaf, ref.shape).astype(ref.dtype)
-                    for leaf, ref in zip(jax.tree.leaves(new_state), carry))
-
-            # final-state snapshot at sample n-1, not the padded chunk end
-            # (state must not advance through the zero-padded tail; indices
-            # are static -- same scheme as fused.make_fused_render, with
-            # the in-loop conditional only emitted when padding exists)
-            pad_needed = np_ != n
-            tc_tgt = (n - 1) // t_chunk
-            j_tgt, u_tgt = divmod((n - 1) % t_chunk, unroll)
-
-            def body_u(j, carry):
-                base = j * unroll
-                for u in range(unroll):
-                    carry = body(base + u, carry)
-                    if pad_needed and u == u_tgt:
-                        snap = tuple(carry)
-
-                        @pl.when(jnp.logical_and(t == tc_tgt, j == j_tgt))
-                        def _():
-                            for val, sr in zip(snap, sout_refs):
-                                sr[...] = val.reshape(sr.shape)
-                return carry
-
-            carry = jax.lax.fori_loop(0, t_chunk // unroll, body_u, carry0)
-            for sc, val in zip(scratches, carry):
-                sc[...] = val.reshape(sc.shape)
-            if not pad_needed:
-                for sc, sr in zip(scratches, sout_refs):
-                    sr[...] = sc[...].reshape(sr.shape)
-
-        def tile_spec(leaf):
-            rest = leaf.shape[:-3]
-            zeros = (0,) * len(rest)
-            return pl.BlockSpec(rest + (1, SUBLANES, LANES),
-                                lambda vt, t, z=zeros: z + (vt, 0, 0),
-                                memory_space=pltpu.VMEM)
-
-        def bnd_spec(leaf):
-            rest = leaf.shape[:-3]
-            zeros = (0,) * len(rest)
-            return pl.BlockSpec((1,) + rest + (1, SUBLANES, LANES),
-                                lambda vt, t, z=zeros: (t,) + z + (vt, 0, 0),
-                                memory_space=pltpu.VMEM)
-
-        stream_spec = pl.BlockSpec((t_chunk, 1, SUBLANES, LANES),
-                                   lambda vt, t: (t, vt, 0, 0),
-                                   memory_space=pltpu.VMEM)
-        audio_spec = pl.BlockSpec((t_chunk, n_ch, 1, SUBLANES, LANES),
-                                  lambda vt, t: (t, 0, vt, 0, 0),
-                                  memory_space=pltpu.VMEM)
-
-        in_specs = ([tile_spec(l) for l in p_tiled]
-                    + [tile_spec(l) for l in s_tiled]
-                    + [stream_spec] * n_x)
-        out_specs = ([audio_spec]
-                     + [tile_spec(l) for l in s_tiled]
-                     + [bnd_spec(l) for l in s_tiled])
-        out_shape = (
-            [jax.ShapeDtypeStruct(
-                (np_, n_ch, n_tiles, SUBLANES, LANES), CV_DTYPE)]
-            + [jax.ShapeDtypeStruct(l.shape, l.dtype) for l in s_tiled]
-            + [jax.ShapeDtypeStruct((n_chunks,) + l.shape, l.dtype)
-               for l in s_tiled])
-        scratch_shapes = [pltpu.VMEM(l.shape[:-3] + (SUBLANES, LANES),
-                                     l.dtype) for l in s_tiled]
-        return pl.pallas_call(
-            kernel, grid=(n_tiles, n_chunks),
-            in_specs=in_specs, out_specs=out_specs, out_shape=out_shape,
-            scratch_shapes=scratch_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary", "arbitrary")),
-            interpret=interpret,
-        )(*p_tiled, *s_tiled, *xs_tiled)
-
-    # ---------------------------------------------------------------- bwd --
-
-    def bwd_pallas(p_tiled, bnd_tiled, xs_tiled, ct_audio_tiled,
-                   ct_final_tiled, meta):
-        (params_def, p_dtypes, state_def, s_dtypes, xs_keys, n_tiles) = meta
-        n_p, n_s, n_x = len(p_tiled), len(bnd_tiled), len(xs_tiled)
-        pf_idx = [i for i, d in enumerate(p_dtypes)
-                  if jnp.issubdtype(d, jnp.floating)]
-        sf_idx = [i for i, d in enumerate(s_dtypes)
-                  if jnp.issubdtype(d, jnp.floating)]
-        n_pf, n_sf = len(pf_idx), len(sf_idx)
-
-        def kernel(*refs):
-            p_refs = refs[:n_p]
-            bnd_refs = refs[n_p:n_p + n_s]
-            x_refs = refs[n_p + n_s:n_p + n_s + n_x]
-            cta_ref = refs[n_p + n_s + n_x]
-            ctf_refs = refs[n_p + n_s + n_x + 1:n_p + n_s + n_x + 1 + n_sf]
-            pg_refs = refs[n_p + n_s + n_x + 1 + n_sf:
-                           n_p + n_s + n_x + 1 + n_sf + n_pf]
-            cts0_refs = refs[n_p + n_s + n_x + 1 + n_sf + n_pf:
-                             n_p + n_s + n_x + 1 + n_sf + n_pf + n_sf]
-            k = n_p + n_s + n_x + 1 + n_sf + n_pf + n_sf
-            pg_scr = refs[k:k + n_pf]
-            cts_scr = refs[k + n_pf:k + n_pf + n_sf]
-            store_scr = refs[k + n_pf + n_sf:]
-
-            tr = pl.program_id(1)
-
-            def squeeze(x):
-                return x.reshape(x.shape[:-3] + (SUBLANES, LANES))
-
-            # with a padded last chunk the final state lives at sample n-1,
-            # not at the chunk end: seed the state cotangent there (inside
-            # bwd_body) instead of at the sweep start, mirroring the
-            # forward's snapshot placement
-            padded = np_ != n
-            i_tgt = (n - 1) % t_chunk
-
-            @pl.when(tr == 0)
-            def _():
-                for pg in pg_scr:
-                    pg[...] = jnp.zeros_like(pg)
-                for cs, cf in zip(cts_scr, ctf_refs):
-                    if padded:
-                        cs[...] = jnp.zeros_like(cs)
-                    else:
-                        cs[...] = cf[...].reshape(cs.shape)
-
-            p_vals = [squeeze(r[...]).astype(d)
-                      for r, d in zip(p_refs, p_dtypes)]
-            params_k = jax.tree.unflatten(params_def, p_vals)
-            pf_vals = [p_vals[i] for i in pf_idx]
-
-            # ---- forward recompute within this chunk, storing states ----
-            # boundary blocks are (1, *rest, 1, 8, 128): drop both unit dims
-            start_leaves = tuple(
-                br[...].reshape(br.shape[1:-3] + (SUBLANES, LANES))
-                for br in bnd_refs)
-
-            # two-level recompute (round-5): the forward sweep stores ONE
-            # state row per bwd_unroll-group (the group boundary) instead
-            # of every sample -- per-sample storage hit the 16 MB VMEM
-            # scoped ceiling at t_chunk=256 (sweep_vjp.py round 4) -- and
-            # the reverse sweep recomputes the group's per-sample states
-            # in registers from that boundary (bit-identical values: same
-            # ops replayed from the same start).  Scratch accesses stay
-            # grouped (one pl.ds row per group per leaf): dynamic VMEM
-            # accesses are tens of cycles each and with ~20 state leaves
-            # per-sample stores dominated the whole backward.
-            def fwd_body(carry, x_rows, u):
-                vals = [c.astype(d) if d == jnp.bool_ else c
-                        for c, d in zip(carry, s_dtypes)]
-                st = jax.tree.unflatten(state_def, vals)
-                x_t = {kk: x_rows[j][u] for j, kk in enumerate(xs_keys)}
-                new_state, _ = step_full(params_k, st, x_t)
-                return tuple(
-                    jnp.broadcast_to(leaf, c.shape).astype(c.dtype)
-                    for leaf, c in zip(jax.tree.leaves(new_state), carry))
-
-            def fwd_body_u(jj, carry):
-                base = jj * bwd_unroll
-                x_rows = [x_refs[j][pl.ds(base, bwd_unroll), 0]
-                          for j in range(n_x)]
-                for k_l, sc in enumerate(store_scr):
-                    sc[pl.ds(jj, 1)] = carry[k_l].reshape(
-                        (1,) + sc.shape[1:])
-                for u in range(bwd_unroll):
-                    carry = fwd_body(carry, x_rows, u)
-                return carry
-
-            jax.lax.fori_loop(0, t_chunk // bwd_unroll, fwd_body_u,
-                              start_leaves)
-
-            # ---- reverse sweep ----
-            def bwd_body(i, u, stored_c, rows, carry):
-                x_rows, cta_rows = rows
-                ct_sf = list(carry[:n_sf])
-                pgrads = list(carry[n_sf:])
-                if padded:
-                    # inject d(loss)/d(final_state) when about to step back
-                    # across sample n-1 (only reached in the last chunk,
-                    # which is tr == 0 of the reversed sweep)
-                    at = jnp.logical_and(tr == 0, i == i_tgt)
-                    ct_sf = [
-                        jnp.where(at, c + cf[...].reshape(c.shape)
-                                  .astype(c.dtype), c)
-                        for c, cf in zip(ct_sf, ctf_refs)]
-                stored = [c.astype(d) for c, d in zip(stored_c, s_dtypes)]
-                x_vals = [x_rows[j2][u] for j2 in range(n_x)]
-                cta = cta_rows[u]  # (C, 8, 128)
-
-                def f(pf_list, sf_list, x_list):
-                    pv = list(p_vals)
-                    for kk, idx in enumerate(pf_idx):
-                        pv[idx] = pf_list[kk]
-                    sv = list(stored)
-                    for kk, idx in enumerate(sf_idx):
-                        sv[idx] = sf_list[kk]
-                    pk = jax.tree.unflatten(params_def, pv)
-                    sk = jax.tree.unflatten(state_def, sv)
-                    x_t = {kk: x_list[j2]
-                           for j2, kk in enumerate(xs_keys)}
-                    new_state, audio = step_full(pk, sk, x_t)
-                    new_leaves = jax.tree.leaves(new_state)
-                    new_f = [jnp.broadcast_to(new_leaves[idx],
-                                              stored[idx].shape)
-                             .astype(s_dtypes[idx]) for idx in sf_idx]
-                    audio_rows = jnp.stack(
-                        [jnp.broadcast_to(audio[c], (SUBLANES, LANES))
-                         .astype(CV_DTYPE) for c in range(n_ch)])
-                    return new_f, audio_rows
-
-                sf_primals = [stored[idx] for idx in sf_idx]
-                _, vjp = jax.vjp(f, pf_vals, sf_primals, x_vals)
-                dp, ds, _ = vjp((ct_sf, cta))
-                new_pgrads = [pg + d for pg, d in zip(pgrads, dp)]
-                return tuple(ds) + tuple(new_pgrads)
-
-            def bwd_body_u(jj, carry):
-                # reversed group order: group jj covers samples
-                # [t_chunk - (jj+1)*bwd_unroll, ...), swept u high -> low
-                base = t_chunk - (jj + 1) * bwd_unroll
-                g = (t_chunk // bwd_unroll) - 1 - jj
-                x_rows = [x_refs[j2][pl.ds(base, bwd_unroll), 0]
-                          for j2 in range(n_x)]
-                cta_rows = cta_ref[pl.ds(base, bwd_unroll), :, 0]
-                # recompute the group's per-sample states in registers
-                # from the stored group-boundary row
-                cg = tuple(sc[pl.ds(g, 1)].reshape(sc.shape[1:])
-                           for sc in store_scr)
-                group = []
-                for u in range(bwd_unroll):
-                    group.append(cg)
-                    if u + 1 < bwd_unroll:
-                        cg = fwd_body(cg, x_rows, u)
-                rows = (x_rows, cta_rows)
-                for u in reversed(range(bwd_unroll)):
-                    carry = bwd_body(base + u, u, group[u], rows, carry)
-                return carry
-
-            carry0 = (tuple(cs[...] for cs in cts_scr)
-                      + tuple(pg[...] for pg in pg_scr))
-            carry = jax.lax.fori_loop(0, t_chunk // bwd_unroll, bwd_body_u,
-                                      carry0)
-            for cs, val in zip(cts_scr, carry[:n_sf]):
-                cs[...] = val
-            for pg, val in zip(pg_scr, carry[n_sf:]):
-                pg[...] = val
-            for pg_out, pg in zip(pg_refs, pg_scr):
-                pg_out[...] = pg[...].reshape(pg_out.shape)
-            for ct_out, cs in zip(cts0_refs, cts_scr):
-                ct_out[...] = cs[...].reshape(ct_out.shape)
-
-        def tile_spec(leaf):
-            rest = leaf.shape[:-3]
-            zeros = (0,) * len(rest)
-            return pl.BlockSpec(rest + (1, SUBLANES, LANES),
-                                lambda vt, t, z=zeros: z + (vt, 0, 0),
-                                memory_space=pltpu.VMEM)
-
-        def bnd_spec_rev(leaf):
-            # leaf: [n_chunks, *rest, tiles, 8, 128]; reversed chunk order
-            rest = leaf.shape[1:-3]
-            zeros = (0,) * len(rest)
-            return pl.BlockSpec(
-                (1,) + rest + (1, SUBLANES, LANES),
-                lambda vt, t, z=zeros: (n_chunks - 1 - t,) + z + (vt, 0, 0),
-                memory_space=pltpu.VMEM)
-
-        stream_rev = pl.BlockSpec((t_chunk, 1, SUBLANES, LANES),
-                                  lambda vt, t: (n_chunks - 1 - t, vt, 0, 0),
-                                  memory_space=pltpu.VMEM)
-        audio_rev = pl.BlockSpec((t_chunk, n_ch, 1, SUBLANES, LANES),
-                                 lambda vt, t: (n_chunks - 1 - t, 0, vt, 0, 0),
-                                 memory_space=pltpu.VMEM)
-
-        pf_tiled = [p_tiled[i] for i in pf_idx]
-        sf_dtypes = [s_dtypes[i] for i in sf_idx]
-        sf_shapes = [bnd_tiled[i].shape[1:] for i in sf_idx]
-
-        def tile_spec_shape(shape):
-            rest = shape[:-3]
-            zeros = (0,) * len(rest)
-            return pl.BlockSpec(rest + (1, SUBLANES, LANES),
-                                lambda vt, t, z=zeros: z + (vt, 0, 0),
-                                memory_space=pltpu.VMEM)
-
-        in_specs = ([tile_spec(l) for l in p_tiled]
-                    + [bnd_spec_rev(l) for l in bnd_tiled]
-                    + [stream_rev] * n_x
-                    + [audio_rev]
-                    + [tile_spec(l) for l in ct_final_tiled])
-        # outputs: float-param grads + float-initial-state cotangents
-        out_specs = ([tile_spec(l) for l in pf_tiled]
-                     + [tile_spec_shape(s) for s in sf_shapes])
-        out_shape = ([jax.ShapeDtypeStruct(l.shape, l.dtype)
-                      for l in pf_tiled]
-                     + [jax.ShapeDtypeStruct(s, d)
-                        for s, d in zip(sf_shapes, sf_dtypes)])
-        scratch_shapes = (
-            [pltpu.VMEM(l.shape[:-3] + (SUBLANES, LANES), l.dtype)
-             for l in pf_tiled]
-            + [pltpu.VMEM(s[:-3] + (SUBLANES, LANES), d)
-               for s, d in zip(sf_shapes, sf_dtypes)]
-            + [pltpu.VMEM((t_chunk // bwd_unroll,) + l.shape[1:-3]
-                          + (SUBLANES, LANES), l.dtype)
-               for l in bnd_tiled])
-
-        return pl.pallas_call(
-            kernel, grid=(n_tiles, n_chunks),
-            in_specs=in_specs, out_specs=out_specs, out_shape=out_shape,
-            scratch_shapes=scratch_shapes,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary", "arbitrary")),
-            interpret=interpret,
-        )(*p_tiled, *bnd_tiled, *xs_tiled, ct_audio_tiled, *ct_final_tiled)
-
-    # ------------------------------------------------------------- driver --
-
-    def prepare(params, state, keys, drivers):
-        v = jax.tree.leaves(params)[0].shape[0]
-        vp = ceil_to(max(v, 1), TILE_VOICES)
-        n_tiles = vp // TILE_VOICES
-
-        def one_xs(p, k):
-            return compiled._make_xs(p, k, n, drivers={})
-        xs = jax.vmap(one_xs)(params, keys)
-        for mid_h, arr in (drivers or {}).items():
-            xs[mid_h] = jnp.asarray(arr, dtype=CV_DTYPE)
-        if np_ != n:
-            xs = {m: jnp.pad(a, ((0, 0), (0, np_ - n)))
-                  for m, a in xs.items()}
-        xs_keys = sorted(xs)
-        xs_tiled = [to_tiles(xs[k], v, vp) for k in xs_keys]
-
-        params_leaves, params_def = jax.tree.flatten(params)
-        state_leaves, state_def = jax.tree.flatten(state)
-        p_dtypes = [l.dtype for l in params_leaves]
-        s_dtypes = [l.dtype for l in state_leaves]
-        p_tiled = [to_tiles(l, v, vp) for l in params_leaves]
-        s_tiled = [to_tiles(l, v, vp) for l in state_leaves]
-        meta = (params_def, p_dtypes, state_def, s_dtypes, xs_keys, n_tiles)
-        return v, vp, p_tiled, s_tiled, xs_tiled, meta
-
-    def fwd_run(params, state, keys, drivers):
-        v, vp, p_tiled, s_tiled, xs_tiled, meta = prepare(
-            params, state, keys, drivers)
-        (params_def, p_dtypes, state_def, s_dtypes, xs_keys, _) = meta
-        results = fwd_pallas(p_tiled, s_tiled, xs_tiled, meta)
-        n_s = len(s_tiled)
-        audio_packed = results[0]
-        finals = results[1:1 + n_s]
-        bnds = results[1 + n_s:]
-        if packed_audio:
-            # stay in the kernels' [n, C, tiles, 8, 128] layout: the
-            # [V, n] untiling transpose (and its JVP on the cotangent
-            # side) is pure overhead when the loss consumes packed lanes
-            audio = audio_packed[:n]
-        else:
-            chans = [from_tiles(audio_packed[:, c], v, CV_DTYPE)[:, :n]
-                     for c in range(n_ch)]
-            audio = jnp.stack(chans, axis=1)
-        final_leaves = [from_tiles(l, v, d)
-                        for l, d in zip(finals, s_dtypes)]
-        final_state = jax.tree.unflatten(state_def, final_leaves)
-        return audio, final_state, bnds
-
-    @jax.custom_vjp
     def render(params, state, keys, drivers):
-        audio, final_state, _ = fwd_run(params, state, keys, drivers)
-        return audio, {}, final_state
+        xs = jax.lax.stop_gradient(
+            fused.hoisted_lanes(compiled, params, keys, drivers, n))
+        # derived params are computed OUTSIDE the custom_vjp, so autodiff
+        # chains their cotangents back to the raw params
+        outs, final = core(compiled.derived_params(params), state, xs)
+        return jnp.stack([outs[k] for k in out_keys], axis=1), {}, final
 
-    def render_fwd(params, state, keys, drivers):
-        audio, final_state, bnds = fwd_run(params, state, keys, drivers)
-        return (audio, {}, final_state), (params, state, keys, drivers, bnds)
-
-    def render_bwd(res, ct):
-        params, state, keys, drivers, bnds = res
-        ct_audio, _, ct_final = ct
-        v, vp, p_tiled, s_tiled, xs_tiled, meta = prepare(
-            params, state, keys, drivers)
-        (params_def, p_dtypes, state_def, s_dtypes, xs_keys, _) = meta
-        sf_idx = [i for i, d in enumerate(s_dtypes)
-                  if jnp.issubdtype(d, jnp.floating)]
-        pf_idx = [i for i, d in enumerate(p_dtypes)
-                  if jnp.issubdtype(d, jnp.floating)]
-
-        cta = jnp.nan_to_num(jnp.asarray(ct_audio, CV_DTYPE))
-        if packed_audio:
-            # cotangent arrives in the packed layout already
-            cta_tiled = (cta if np_ == n else
-                         jnp.pad(cta, ((0, np_ - n),) + ((0, 0),) * 4))
-        else:
-            if np_ != n:
-                cta = jnp.pad(cta, ((0, 0), (0, 0), (0, np_ - n)))
-            # [V, C, T] -> packed [T, C, tiles, 8, 128]
-            cta_tiled = jnp.stack(
-                [to_tiles(cta[:, c], v, vp) for c in range(n_ch)], axis=1)
-
-        ctf_leaves = jax.tree.leaves(ct_final)
-        ctf_tiled = [to_tiles(jnp.asarray(ctf_leaves[i]).astype(s_dtypes[i]),
-                              v, vp) for i in sf_idx]
-
-        results = bwd_pallas(p_tiled, list(bnds), xs_tiled, cta_tiled,
-                             ctf_tiled, meta)
-        n_pf = len(pf_idx)
-        pg = results[:n_pf]
-        cts0 = results[n_pf:]
-
-        dp_leaves = [_zero_ct(l) for l in jax.tree.leaves(params)]
-        for k, idx in enumerate(pf_idx):
-            dp_leaves[idx] = from_tiles(pg[k], v, p_dtypes[idx])
-        dparams = jax.tree.unflatten(params_def, dp_leaves)
-
-        ds_leaves = [_zero_ct(l) for l in jax.tree.leaves(state)]
-        for k, idx in enumerate(sf_idx):
-            ds_leaves[idx] = from_tiles(cts0[k], v, s_dtypes[idx])
-        dstate = jax.tree.unflatten(state_def, ds_leaves)
-
-        dkeys = jax.tree.map(_zero_ct, keys)
-        ddrivers = jax.tree.map(_zero_ct, drivers)
-        return dparams, dstate, dkeys, ddrivers
-
-    render.defvjp(render_fwd, render_bwd)
-
-    def render_derived(params, state, keys, drivers):
-        # derive per-render params OUTSIDE the custom_vjp so autodiff
-        # chains derived-param cotangents back to the raw params (the
-        # hand-written backward only knows the kernel's own inputs)
-        return render(compiled.derived_params(params), state, keys, drivers)
-
-    return render_derived
+    return render

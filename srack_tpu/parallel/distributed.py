@@ -1,4 +1,4 @@
-"""Multi-host initialization (SURVEY.md §5 "jax.distributed + ICI/DCN").
+"""Multi-host initialization (SURVEY.md §5 "jax.distributed").
 
 The reference is a single OS process (SURVEY.md §2f); scaling past one
 host is a build-side commitment.  Synthesis is data-parallel over voices,
@@ -7,18 +7,17 @@ so the multi-host story is deliberately thin:
 * every host calls :func:`init_distributed` once, before touching devices;
 * ``make_mesh()`` then builds a mesh over the GLOBAL device list
   (``jax.devices()`` spans processes after initialization) -- batch-axis
-  shardings place voices on local chips, and the only collectives
-  (mix-bus ``psum``, training-loss reductions) ride ICI within a slice
-  and DCN across slices, inserted by XLA from the same ``NamedSharding``
-  annotations that drive the single-host farm;
+  shardings place voices on local devices, and the only collectives
+  (mix-bus ``psum``, training-loss reductions) ride the intra-host links
+  within a host and the network across hosts, inserted by XLA from the
+  same ``NamedSharding`` annotations that drive the single-host farm;
 * per-voice state never crosses hosts: the per-sample recurrence is
-  chip-local by design (SURVEY.md §5 long-context), so DCN carries only
-  reduced scalars/buses, never the hot path.
+  device-local by design (SURVEY.md §5 long-context), so the network
+  carries only reduced scalars/buses, never the hot path.
 
 Validated by a two-process localhost CPU test
-(tests/test_distributed.py; gloo cross-process collectives), since this
-environment exposes a single TPU chip.  See docs/ARCHITECTURE.md
-("Multi-host") for the DCN deployment recipe.
+(tests/test_distributed.py; gloo cross-process collectives).  See
+docs/ARCHITECTURE.md ("Multi-host") for the multi-host deployment recipe.
 """
 
 from __future__ import annotations
@@ -36,8 +35,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize the multi-process JAX runtime and report the topology.
 
     Thin wrapper over ``jax.distributed.initialize``: under managed
-    launchers (GKE TPU pods, SLURM, Open MPI) every argument auto-detects
-    from the environment and ``init_distributed()`` is all a worker needs;
+    launchers (SLURM, Open MPI, cloud pod schedulers) every argument
+    auto-detects from the environment and ``init_distributed()`` is all a
+    worker needs;
     otherwise pass ``coordinator_address="host:port"``, ``num_processes``
     and this worker's ``process_id`` explicitly.
 

@@ -2,7 +2,7 @@
 
 BASELINE config 5: independent randomized patches of one topology rendered
 in parallel for dataset generation.  Voices are pure data parallelism --
-the hot path has zero cross-chip traffic; audio is gathered (or mix-bussed
+the hot path has zero cross-device traffic; audio is gathered (or mix-bussed
 with a ``psum``) only at collection (SURVEY.md §2f).
 """
 
@@ -12,9 +12,11 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+
 from ..compiler import compile_patch
 from ..patch import Patch, ModuleHandle
-from .mesh import batch_sharding, make_mesh, replicated, shard_batch
+from .mesh import make_mesh, shard_batch
 
 
 def render_farm(patch: Patch, n_samples: int, *, params: dict,
@@ -25,8 +27,8 @@ def render_farm(patch: Patch, n_samples: int, *, params: dict,
 
     ``params`` carries a leading voice axis on every leaf; it is sharded
     over all mesh axes.  With ``mixdown=True`` the per-voice audio is summed
-    into one ``[channels, n]`` mix bus -- on a mesh this lowers to an XLA
-    ``psum`` over ICI (the only collective synthesis needs).
+    into one ``[channels, n]`` mix bus -- a ``psum`` across the mesh (the
+    only collective synthesis needs).
     """
     if mesh is None:
         mesh = make_mesh()
@@ -54,16 +56,20 @@ def render_farm(patch: Patch, n_samples: int, *, params: dict,
 
     vmapped = compiled._get_fn(int(n_samples), batched=True,
                                engine=compiled.auto_engine(batched=True))
+    # each device renders its own voice shard: a Pallas kernel is not
+    # SPMD-partitionable, so without shard_map XLA would gather the batch
+    # and run the whole farm on every device
+    bspec = P(mesh.axis_names)
 
-    if not mixdown:
-        return vmapped(params, state, keys, drv)
-
-    def run_and_mix(p, s, k, d):
+    def local(p, s, k, d):
         audio, probe_ys, final_state = vmapped(p, s, k, d)
-        return audio.sum(axis=0), probe_ys, final_state
+        if mixdown:
+            audio = jax.lax.psum(audio.sum(axis=0), mesh.axis_names)
+        return audio, probe_ys, final_state
 
-    out_shardings = (replicated(mesh), batch_sharding(mesh),
-                     batch_sharding(mesh))
-    mixed = jax.jit(run_and_mix, out_shardings=out_shardings)(
-        params, state, keys, drv)
-    return mixed
+    # check_vma=False: pallas_call's outputs carry no varying-axes type
+    sharded = jax.shard_map(
+        local, mesh=mesh, in_specs=(bspec, bspec, bspec, bspec),
+        out_specs=(P() if mixdown else bspec, bspec, bspec),
+        check_vma=False)
+    return jax.jit(sharded)(params, state, keys, drv)

@@ -4,8 +4,8 @@ The reference has no distributed execution at all (SURVEY.md §2f); scaling
 out is a build-side design: independent voices/patches are data-parallel, so
 the natural layout is a mesh over the batch axis with XLA inserting
 collectives only where renders are reduced (mix busses, losses, gradients).
-Shardings ride ICI; the per-sample recurrence stays chip-local (time cannot
-be split across chips for feedback paths -- SURVEY.md §5 long-context).
+The per-sample recurrence stays device-local (time cannot be split across
+devices for feedback paths -- SURVEY.md §5 long-context).
 """
 
 from __future__ import annotations

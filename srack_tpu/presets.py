@@ -203,10 +203,7 @@ def farm_params(patch: Patch, n_voices: int, seed: int = 0) -> dict:
             # config 5), not per-voice tempos.  The old exclusion matched
             # only subtractive_voice's "gate_clock", so the kit/sequencer
             # "clock" oscillators got +-1-octave random tempos -- which
-            # also scattered every voice's trigger positions and knocked
-            # the Sample kernels off their consecutive-read tiers (each
-            # in-config kernel measured 71.7 ms vs ~25 ms per
-            # [1024 x 480k] call, scripts/r5_profile_kit.py, round 5).
+            # also scattered every voice's trigger positions.
             if t == "Oscillator" and "clock" not in (inst.name or ""):
                 pd["val"] = jnp.float32(pd["val"] + rng.uniform(-1.0, 1.0))
             elif t == "Moog Filter":
@@ -286,8 +283,8 @@ def sampler_kit(cfg: AudioConfig | None = None) -> Patch:
     playing a full-second (sample_rate-frame) waveform at pitch CV 0
     (rate 1.0, sample.rs:233-234 law).  This is the sample-playback
     workload the synthesized 400-frame hat of :func:`drum_machine`
-    sidesteps -- table reads hit the windowed dynamic-gather kernel
-    (ops/sample_gather) instead of the small-table select chain.
+    sidesteps -- table reads are XLA gathers from 48,000-frame tables
+    instead of a small table.
     """
     cfg = cfg or AudioConfig()
     sr = cfg.sample_rate

@@ -41,8 +41,3 @@ def multiscale_spectral_loss(
 
 def waveform_l2(pred: jnp.ndarray, target: jnp.ndarray) -> jnp.ndarray:
     return jnp.mean((pred - target) ** 2)
-
-
-# elementwise: identical value on any permutation of the lanes, so the
-# packed [n, C, tiles, 8, 128] training layout is valid for it
-waveform_l2.packed_safe = True

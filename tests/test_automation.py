@@ -9,7 +9,7 @@ is the DAW-style layer above them.  Semantics pinned here:
 * automating an oscillator's ``val`` equals driving its CV input with the
   same array (octs = cv + val is the documented pitch law,
   oscillator.rs:43-48);
-* lanes reach the fused Pallas engine (interpret mode) with the same
+* lanes reach the voice-kernel shell (interpret mode) with the same
   results as the scan engine;
 * the block engine runs automation too: serial-stage modules stream lanes
   per sample (exact), block-phase modules handle lanes natively when
@@ -25,6 +25,7 @@ import pytest
 import srack_tpu as st
 from srack_tpu.compiler import compile_patch
 from srack_tpu.engine import render_batch, replicate_params
+from srack_tpu.ops import fused
 
 CFG = st.AudioConfig(sample_rate=8000, block_size=64, channels=1,
                      precision="fast")
@@ -87,8 +88,13 @@ def test_fused_interpret_matches_scan():
     params = replicate_params(p.params(), v)
     want = compiled.render(N, params=params, batched=True, engine="scan",
                            automation={(osc, "val"): lane})[0]
-    got = compiled.render(N, params=params, batched=True, engine="fused",
-                          automation={(osc, "val"): lane})[0]
+    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
+                         compiled.init_state())
+    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    lanes = {compiled._auto_key(osc.id, "val"): jnp.broadcast_to(lane,
+                                                                 (v, N))}
+    run = fused.make_fused_render(compiled, N, interpret=True)
+    got = jax.jit(run)(params, state, keys, lanes)[0]
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                atol=2e-5, rtol=2e-5)
 

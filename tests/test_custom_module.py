@@ -2,9 +2,9 @@
 
 The reference is extended by implementing the ``SynthModule`` trait and
 adding the type to ``get_catalog()`` (src/synth.rs:216-263, 421-515); the
-TPU analogue is building a :class:`ModuleDef` out of pure functions and
+JAX analogue is building a :class:`ModuleDef` out of pure functions and
 registering it.  These tests pin the whole contract end to end: catalog
-validation, every engine (scan, block serial stage, fused Pallas kernel
+validation, every engine (scan, block serial stage, voice-kernel shell
 via ``register_safe=True``), JSON persistence, and a NumPy oracle for the
 semantics of the example module itself.
 """
@@ -151,8 +151,8 @@ def test_block_engine_serial_stage_matches_scan(slew):
 
 
 def test_fused_kernel_accepts_register_safe(slew):
-    """register_safe=True admits the custom type to the fused Pallas
-    kernel (interpret mode off-TPU); output matches the scan engine."""
+    """register_safe=True admits the custom type to the voice-kernel
+    shell (interpret mode on the CPU); output matches the scan engine."""
     from srack_tpu.ops import fused
     from srack_tpu.presets import farm_params
 
@@ -170,7 +170,7 @@ def test_fused_kernel_accepts_register_safe(slew):
     state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
                          compiled.init_state())
     keys = jax.random.split(jax.random.PRNGKey(0), v)
-    run = fused.make_fused_render(compiled, n, t_chunk=16, unroll=4,
+    run = fused.make_fused_render(compiled, n, unroll=4,
                                   interpret=True)
     audio_f, _, _ = jax.jit(run)(params, state, keys, {})
     audio_s, _, _ = compiled.render(n, params=params, state=state, key=keys,

@@ -1,20 +1,31 @@
-"""Whole-Freeverb Pallas kernel vs a literal per-sample NumPy reference.
+"""Freeverb's chunk-parallel block path vs a literal per-sample reference.
 
-The kernel (ops/freeverb_kernel.py) only engages on TPU; here it runs in
-interpret mode and must reproduce the exact comb/allpass tick semantics
-(freeverb crate, see modules/freeverb.py) including carried damping state,
-line roll-over across chunks, and the series allpass sub-piece order.
+``modules/freeverb._block`` (plain XLA: ring rotation, a log-doubling solve
+of each comb's damping one-pole per chunk, allpass sub-pieces) must
+reproduce the exact comb/allpass tick semantics of the freeverb crate (see
+modules/freeverb.py), including carried damping state, line roll-over
+across chunks and calls, and the series allpass sub-piece order.  The
+reference is float32 NumPy over chronological lines (hist[0] = next read).
 """
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
-from srack_tpu.ops import freeverb_kernel as fvk
+from srack_tpu.config import AudioConfig
+from srack_tpu.modules.freeverb import (FREEVERB, _step, freeverb_gains,
+                                        line_lengths)
 
-COMB_LENS = (202, 215, 231, 246, 258, 270, 282, 293,
-             206, 219, 235, 250, 262, 274, 286, 297)
-AP_LENS = (100, 80, 61, 40, 104, 84, 65, 44)
+# 4.8 kHz keeps the lines short (combs 121..161, allpasses 24..60 samples)
+# so a few hundred samples cross several chunks and a ragged tail
+CFG = AudioConfig(sample_rate=4800, block_size=64, channels=2,
+                  precision="fast")
+CL, CR, AL, AR = line_lengths(CFG.sample_rate)
+COMB_LENS = CL + CR
+AP_LENS = AL + AR
+COMB_KEYS = [f"cl{i}" for i in range(8)] + [f"cr{i}" for i in range(8)]
+AP_KEYS = [f"al{i}" for i in range(4)] + [f"ar{i}" for i in range(4)]
 
 
 def _reference(mixed, fs0, damp, feed, hists):
@@ -47,306 +58,127 @@ def _reference(mixed, fs0, damp, feed, hists):
     return out_l, out_r, fs, h
 
 
-@pytest.mark.slow
+def _setup(seed, dampening=0.875):
+    """Random lines/damping state; wet=1, width=1, dry=0 so the block
+    output is exactly 3x (SCALE_WET) the raw left/right reverb."""
+    rng = np.random.default_rng(seed)
+    statics, params = FREEVERB.make(CFG, dampening=dampening, wet=1.0,
+                                    width=1.0, room_size=0.5, dry=0.0)
+    params = jax.tree.map(jnp.asarray, params)
+    hists = [rng.normal(size=l).astype(np.float32) * 0.1
+             for l in COMB_LENS + AP_LENS]
+    fs0 = rng.normal(size=16).astype(np.float32) * 0.1
+    state = dict(FREEVERB.init_state(CFG, statics))
+    for k, h in zip(COMB_KEYS + AP_KEYS, hists):
+        state[k] = jnp.asarray(h)
+    for j, k in enumerate(COMB_KEYS):
+        state[f"c{k[1]}{k[2:]}_fs"] = jnp.float32(fs0[j])
+    damp, feed, in_gain, *_ = freeverb_gains(params, jnp.float32)
+    return (rng, statics, params, state, hists, fs0, np.float32(damp),
+            np.float32(feed), np.float32(in_gain))
+
+
+def _block(statics, params, state, x):
+    x = jnp.asarray(x)
+    return FREEVERB.block(CFG, statics, params, state, (x, x), None,
+                          x.shape[0])
+
+
+def _check(new_state, outs, want):
+    want_l, want_r, want_fs, want_h = want
+    np.testing.assert_allclose(np.asarray(outs[0]) / 3.0, want_l,
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(outs[1]) / 3.0, want_r,
+                               atol=2e-5, rtol=2e-5)
+    for j, k in enumerate(COMB_KEYS):
+        np.testing.assert_allclose(
+            np.asarray(new_state[f"c{k[1]}{k[2:]}_fs"]), want_fs[j],
+            atol=2e-5, rtol=2e-5)
+    for k, w in zip(COMB_KEYS + AP_KEYS, want_h):
+        np.testing.assert_allclose(np.asarray(new_state[k]), w,
+                                   atol=2e-5, rtol=2e-5)
+        assert int(new_state[f"{k}_idx"]) == 0
+
+
+def _mixed(x, in_gain):
+    return ((x + x) * in_gain).astype(np.float32)
+
+
 def test_kernel_matches_per_sample_reference():
-    rng = np.random.default_rng(0)
-    n, t_c = 256, 128
-    mixed = rng.normal(size=n).astype(np.float32) * 0.1
-    fs0 = rng.normal(size=16).astype(np.float32) * 0.1
-    damp, feed = np.float32(0.35), np.float32(0.84)
-    hists = [rng.normal(size=l).astype(np.float32) * 0.1
-             for l in COMB_LENS + AP_LENS]
-
-    fn = fvk.entry(COMB_LENS, AP_LENS, n, t_c)
-    outs = fn(jnp.asarray(mixed), jnp.asarray(fs0),
-              jnp.asarray(damp), jnp.asarray(feed),
-              *[jnp.asarray(h) for h in hists])
-    got_l, got_r, got_fs = (np.asarray(outs[0]), np.asarray(outs[1]),
-                            np.asarray(outs[2]))
-    got_h = [np.asarray(h) for h in outs[3:]]
-
-    want_l, want_r, want_fs, want_h = _reference(mixed, fs0, damp, feed,
-                                                 hists)
-    # the in-kernel damping scan reassociates the one-pole; tolerances are
-    # float-rounding scale
-    np.testing.assert_allclose(got_l, want_l, atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(got_r, want_r, atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(got_fs, want_fs, atol=2e-5, rtol=2e-5)
-    for g, w in zip(got_h, want_h):
-        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
+    rng, statics, params, state, hists, fs0, damp, feed, g = _setup(0)
+    n = 300  # two full 121-sample chunks and a ragged tail
+    x = rng.normal(size=n).astype(np.float32)
+    new_state, outs = _block(statics, params, state, x)
+    _check(new_state, outs, _reference(_mixed(x, g), fs0, damp, feed,
+                                       hists))
 
 
-@pytest.mark.slow
 def test_multi_grid_step_kc_state_carry():
-    """k_c sub-chunks spanning MULTIPLE grid steps: n=1280, t_c=128 makes
-    pick_k_c choose k_c=5 (largest divisor of 10 <= 8) over 2 grid steps,
-    so the fs/hist/pow_scr residency BETWEEN k_c-grouped invocations is
-    exercised (every other fixture absorbs all chunks into one grid step;
-    advisor round-4 finding)."""
-    n, t_c = 1280, 128
-    assert fvk.pick_k_c(n // t_c, t_c, 3) == 5  # 2 grid steps
-    rng = np.random.default_rng(6)
-    mixed = rng.normal(size=n).astype(np.float32) * 0.1
-    fs0 = rng.normal(size=16).astype(np.float32) * 0.1
-    damp, feed = np.float32(0.35), np.float32(0.84)
-    hists = [rng.normal(size=l).astype(np.float32) * 0.1
-             for l in COMB_LENS + AP_LENS]
-
-    fn = fvk.entry(COMB_LENS, AP_LENS, n, t_c)
-    outs = fn(jnp.asarray(mixed), jnp.asarray(fs0),
-              jnp.asarray(damp), jnp.asarray(feed),
-              *[jnp.asarray(h) for h in hists])
-    want_l, want_r, want_fs, want_h = _reference(mixed, fs0, damp, feed,
-                                                 hists)
-    np.testing.assert_allclose(np.asarray(outs[0]), want_l,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[1]), want_r,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[2]), want_fs,
-                               atol=2e-5, rtol=2e-5)
-    for g, w in zip([np.asarray(h) for h in outs[3:]], want_h):
-        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
-
-
-def test_truncated_damping_window(monkeypatch):
-    """The damping scan truncates at DAMP_WINDOW taps (damp <= 0.8 makes
-    older contributions sub-f32-rounding).  The default window (128) only
-    engages at t_c > 128; shrink it to 32 here so the truncated code path
-    runs at the cheap interpret-mode shape.  damp=0.6 forces the FULL
-    tier (0.6^16 ~ 2.8e-4 > DAMP_EPS, so no adaptive tier engages) while
-    its window-32 truncation (0.6^32 ~ 8e-8) stays below the float
-    tolerance."""
-    monkeypatch.setattr(fvk, "DAMP_WINDOW", 32)
-    fvk._build.cache_clear()
-
-    rng = np.random.default_rng(2)
-    n, t_c = 256, 128
-    mixed = rng.normal(size=n).astype(np.float32) * 0.1
-    fs0 = rng.normal(size=16).astype(np.float32) * 0.1
-    damp, feed = np.float32(0.6), np.float32(0.84)
-    hists = [rng.normal(size=l).astype(np.float32) * 0.1
-             for l in COMB_LENS + AP_LENS]
-
-    fn = fvk._make_entry(COMB_LENS, AP_LENS, n, t_c)
-    outs = fn(jnp.asarray(mixed), jnp.asarray(fs0),
-              jnp.asarray(damp), jnp.asarray(feed),
-              *[jnp.asarray(h) for h in hists])
-    want_l, want_r, want_fs, want_h = _reference(mixed, fs0, damp, feed,
-                                                 hists)
-    np.testing.assert_allclose(np.asarray(outs[0]), want_l,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[1]), want_r,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[2]), want_fs,
-                               atol=2e-5, rtol=2e-5)
-    fvk._build.cache_clear()
+    """Two consecutive block calls carry the lines and damping state: the
+    second call starts from the first call's rotated lines and matches the
+    reference run straight through."""
+    rng, statics, params, state, hists, fs0, damp, feed, g = _setup(6)
+    x = rng.normal(size=400).astype(np.float32)
+    mid_state, outs_a = _block(statics, params, state, x[:170])
+    end_state, outs_b = _block(statics, params, mid_state, x[170:])
+    outs = [jnp.concatenate([a, b]) for a, b in zip(outs_a, outs_b)]
+    _check(end_state, outs, _reference(_mixed(x, g), fs0, damp, feed,
+                                       hists))
 
 
 @pytest.mark.parametrize("damp_v", [0.15, 0.35, 0.6])
 def test_damping_tiers(damp_v):
-    """Each damping-scan tier (ops/freeverb_kernel.py DAMP_TIERS) against
-    the per-sample reference: damp=0.15 takes the window-8 tier
-    (0.15^8 ~ 2.6e-7 <= DAMP_EPS*(1-damp)), 0.35 the window-16 tier
-    (0.35^8 ~ 2.2e-4 insufficient, 0.35^16 ~ 5e-8 sufficient), 0.6 the
-    full window.  Tier truncation errors (amplified <= ~6x by the comb
-    feedback) all sit below the float32 parity tolerance by design
-    (DAMP_EPS rationale in the kernel header)."""
-    rng = np.random.default_rng(3)
-    n, t_c = 256, 128
-    mixed = rng.normal(size=n).astype(np.float32) * 0.1
-    fs0 = rng.normal(size=16).astype(np.float32) * 0.1
-    damp, feed = np.float32(damp_v), np.float32(0.84)
-    hists = [rng.normal(size=l).astype(np.float32) * 0.1
-             for l in COMB_LENS + AP_LENS]
-
-    fn = fvk.entry(COMB_LENS, AP_LENS, n, t_c)
-    outs = fn(jnp.asarray(mixed), jnp.asarray(fs0),
-              jnp.asarray(damp), jnp.asarray(feed),
-              *[jnp.asarray(h) for h in hists])
-    want_l, want_r, want_fs, want_h = _reference(mixed, fs0, damp, feed,
-                                                 hists)
-    np.testing.assert_allclose(np.asarray(outs[0]), want_l,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[1]), want_r,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[2]), want_fs,
-                               atol=2e-5, rtol=2e-5)
-    for g, w in zip([np.asarray(h) for h in outs[3:]], want_h):
-        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
+    """Light, medium and heavy damping against the per-sample reference
+    (the log-doubling solve reassociates the one-pole: float-rounding
+    scale differences only)."""
+    rng, statics, params, state, hists, fs0, damp, feed, g = _setup(
+        3, dampening=damp_v / 0.4)
+    x = rng.normal(size=256).astype(np.float32)
+    new_state, outs = _block(statics, params, state, x)
+    _check(new_state, outs, _reference(_mixed(x, g), fs0, damp, feed,
+                                       hists))
 
 
 def test_kernel_batched_rows():
-    import jax
-
-    rng = np.random.default_rng(1)
-    n, t_c, v = 128, 128, 3
-    mixed = rng.normal(size=(v, n)).astype(np.float32) * 0.1
-    fs0 = np.zeros((v, 16), np.float32)
-    damp = np.full((v,), 0.4, np.float32)
-    feed = np.full((v,), 0.8, np.float32)
-    hists = [rng.normal(size=(v, l)).astype(np.float32) * 0.1
-             for l in COMB_LENS + AP_LENS]
-
-    fn = fvk.entry(COMB_LENS, AP_LENS, n, t_c)
-    outs = jax.vmap(fn)(jnp.asarray(mixed), jnp.asarray(fs0),
-                        jnp.asarray(damp), jnp.asarray(feed),
-                        *[jnp.asarray(h) for h in hists])
+    """Voices under the engine's vmap, each with its own input."""
+    rng, statics, params, state, hists, fs0, damp, feed, g = _setup(1)
+    v, n = 3, 200
+    x = rng.normal(size=(v, n)).astype(np.float32)
+    states, outs = jax.vmap(lambda a: _block(statics, params, state, a))(
+        jnp.asarray(x))
     for i in range(v):
-        want = _reference(mixed[i], fs0[i], damp[i], feed[i],
-                          [h[i] for h in hists])
-        np.testing.assert_allclose(np.asarray(outs[0][i]), want[0],
+        want = _reference(_mixed(x[i], g), fs0, damp, feed, hists)
+        np.testing.assert_allclose(np.asarray(outs[0][i]) / 3.0, want[0],
+                                   atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(np.asarray(outs[1][i]) / 3.0, want[1],
                                    atol=2e-5, rtol=2e-5)
 
 
 def test_entry_mix_matches_shell():
-    """entry_mix (fused input-gain + wet/dry shell, _build fuse_mix) must
-    match entry + the module's outside mix (modules/freeverb.py _block
-    final mix) on the same lanes, in both stereo and mono-wire forms."""
+    """The full module -- stereo inputs, width, dry, rings starting at a
+    non-zero write index -- against its own per-sample step folded by
+    ``lax.scan`` (the scan engine's semantics)."""
     rng = np.random.default_rng(4)
-    n, t_c = 256, 128
-    l = (rng.normal(size=n) * 0.1).astype(np.float32)
-    r = (rng.normal(size=n) * 0.1).astype(np.float32)
-    fs0 = (rng.normal(size=16) * 0.1).astype(np.float32)
-    damp, feed = np.float32(0.35), np.float32(0.84)
-    in_g, wet1, wet2, dry = (np.float32(0.015), np.float32(0.09),
-                             np.float32(0.03), np.float32(0.3))
-    hists = [(rng.normal(size=ln) * 0.1).astype(np.float32)
-             for ln in COMB_LENS + AP_LENS]
-    args = [jnp.asarray(a) for a in hists]
+    statics, params = FREEVERB.make(CFG, dampening=0.6, wet=0.4, width=0.3,
+                                    room_size=0.8, dry=0.25)
+    params = jax.tree.map(jnp.asarray, params)
+    state = dict(FREEVERB.init_state(CFG, statics))
+    for k in COMB_KEYS + AP_KEYS:
+        state[k] = jnp.asarray(rng.normal(size=state[k].shape[0])
+                               .astype(np.float32) * 0.1)
+        state[f"{k}_idx"] = jnp.int32(rng.integers(0, state[k].shape[0]))
+    n = 333
+    xl = jnp.asarray(rng.normal(size=n).astype(np.float32))
+    xr = jnp.asarray(rng.normal(size=n).astype(np.float32))
+    _, (bl, br) = FREEVERB.block(CFG, statics, params, state, (xl, xr),
+                                 None, n)
 
-    base = fvk.entry(COMB_LENS, AP_LENS, n, t_c)(
-        jnp.asarray((l + r) * in_g), jnp.asarray(fs0),
-        jnp.asarray(damp), jnp.asarray(feed), *args)
-    want_l = np.asarray(base[0]) * wet1 + np.asarray(base[1]) * wet2 + l * dry
-    want_r = np.asarray(base[1]) * wet1 + np.asarray(base[0]) * wet2 + r * dry
+    def body(st, x):
+        st, outs = _step(CFG, statics, params, st, x)
+        return st, outs
 
-    got = fvk.entry_mix(COMB_LENS, AP_LENS, n, t_c, False)(
-        jnp.asarray(l), jnp.asarray(r), jnp.asarray(fs0),
-        jnp.asarray(damp), jnp.asarray(feed), jnp.asarray(in_g),
-        jnp.asarray(wet1), jnp.asarray(wet2), jnp.asarray(dry), *args)
-    np.testing.assert_allclose(np.asarray(got[0]), want_l, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got[1]), want_r, atol=1e-6)
-    # carried state identical to the unfused kernel's
-    for g, w in zip(got[2:], base[2:]):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-    # mono form: one lane streams, both channels see the same dry input
-    base_m = fvk.entry(COMB_LENS, AP_LENS, n, t_c)(
-        jnp.asarray((l + l) * in_g), jnp.asarray(fs0),
-        jnp.asarray(damp), jnp.asarray(feed), *args)
-    got_m = fvk.entry_mix(COMB_LENS, AP_LENS, n, t_c, True)(
-        jnp.asarray(l), jnp.asarray(fs0),
-        jnp.asarray(damp), jnp.asarray(feed), jnp.asarray(in_g),
-        jnp.asarray(wet1), jnp.asarray(wet2), jnp.asarray(dry), *args)
-    want_ml = (np.asarray(base_m[0]) * wet1 + np.asarray(base_m[1]) * wet2
-               + l * dry)
-    np.testing.assert_allclose(np.asarray(got_m[0]), want_ml, atol=1e-6)
-
-
-@pytest.mark.slow
-def test_entry_mix_skip_r():
-    """skip_r (dead Right output, block_outs_hint elision) must leave
-    final_l and ALL carried state identical to the full fused kernel --
-    the right comb/allpass chain still runs (it feeds final_l via wet2)."""
-    rng = np.random.default_rng(5)
-    n, t_c = 256, 128
-    l = (rng.normal(size=n) * 0.1).astype(np.float32)
-    fs0 = (rng.normal(size=16) * 0.1).astype(np.float32)
-    hists = [(rng.normal(size=ln) * 0.1).astype(np.float32)
-             for ln in COMB_LENS + AP_LENS]
-    args = ([jnp.asarray(l), jnp.asarray(fs0)]
-            + [jnp.asarray(np.float32(x))
-               for x in (0.35, 0.84, 0.015, 0.09, 0.03, 0.3)]
-            + [jnp.asarray(h) for h in hists])
-    full = fvk.entry_mix(COMB_LENS, AP_LENS, n, t_c, True, False)(*args)
-    skip = fvk.entry_mix(COMB_LENS, AP_LENS, n, t_c, True, True)(*args)
-    assert len(skip) == len(full) - 1
-    np.testing.assert_array_equal(np.asarray(skip[0]), np.asarray(full[0]))
-    for g, w in zip(skip[1:], full[2:]):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-
-RING_COMB_LENS = (202, 215, 231, 246, 251, 203, 219, 235,
-                  206, 148, 250, 255, 129, 180, 177, 190)
-
-
-def test_ring_combs_match_reference_and_chain():
-    """2-slot ring comb geometry (t_c < L < 2*t_c forces use_ring with
-    k_c=2): parity vs the per-sample reference AND state continuity --
-    one n=1024 render must bit-match two chained n=512 renders (the
-    chain exercises the ring pack/unpack at both parities of
-    n_chunks)."""
-    t_c = 128
-    assert fvk._ring_ok(RING_COMB_LENS, 1024, t_c)
-    rng = np.random.default_rng(11)
-    mixed = rng.normal(size=1024).astype(np.float32) * 0.1
-    fs0 = rng.normal(size=16).astype(np.float32) * 0.1
-    damp, feed = np.float32(0.35), np.float32(0.84)
-    hists = [rng.normal(size=l).astype(np.float32) * 0.1
-             for l in RING_COMB_LENS + AP_LENS]
-
-    want_l, want_r, want_fs, want_h = _reference(
-        mixed, fs0, damp, feed, hists)
-
-    run = fvk._build(RING_COMB_LENS, AP_LENS, 1024, t_c, True,
-                     k_c=2, ring=True)
-    outs = [o[0] for o in run(
-        jnp.asarray(mixed)[None], jnp.asarray(fs0)[None],
-        jnp.asarray(damp)[None], jnp.asarray(feed)[None],
-        *[jnp.asarray(h)[None] for h in hists])]
-    np.testing.assert_allclose(np.asarray(outs[0]), want_l,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[1]), want_r,
-                               atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(outs[2]), want_fs,
-                               atol=2e-5, rtol=2e-5)
-    for g, w in zip(outs[3:], want_h):
-        np.testing.assert_allclose(np.asarray(g), w, atol=2e-5, rtol=2e-5)
-
-    # chained halves: bit-identical to the single render (same chunking)
-    run2 = fvk._build(RING_COMB_LENS, AP_LENS, 512, t_c, True,
-                      k_c=2, ring=True)
-    o1 = [o[0] for o in run2(
-        jnp.asarray(mixed[:512])[None], jnp.asarray(fs0)[None],
-        jnp.asarray(damp)[None], jnp.asarray(feed)[None],
-        *[jnp.asarray(h)[None] for h in hists])]
-    o2 = [o[0] for o in run2(
-        jnp.asarray(mixed[512:])[None], jnp.asarray(o1[2])[None],
-        jnp.asarray(damp)[None], jnp.asarray(feed)[None],
-        *[jnp.asarray(h)[None] for h in o1[3:]])]
-    np.testing.assert_array_equal(
-        np.concatenate([np.asarray(o1[0]), np.asarray(o2[0])]),
-        np.asarray(outs[0]))
-    for g, w in zip(o2[3:], outs[3:]):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-
-def test_ring_combs_entry_mix():
-    """Ring geometry through the fused-shell entry (the bench path)."""
-    t_c, n = 128, 512
-    rng = np.random.default_rng(12)
-    l_in = rng.normal(size=n).astype(np.float32) * 0.1
-    fs0 = rng.normal(size=16).astype(np.float32) * 0.1
-    damp, feed = np.float32(0.2), np.float32(0.84)
-    in_gain, wet1, wet2, dry = (np.float32(0.015), np.float32(0.12),
-                                np.float32(0.06), np.float32(0.3))
-    hists = [rng.normal(size=l).astype(np.float32) * 0.1
-             for l in RING_COMB_LENS + AP_LENS]
-
-    mixed = ((l_in + l_in) * in_gain).astype(np.float32)
-    want_l, want_r, want_fs, want_h = _reference(
-        mixed, fs0, damp, feed, hists)
-    want_final_l = want_l * wet1 + want_r * wet2 + l_in * dry
-
-    run = fvk._build(RING_COMB_LENS, AP_LENS, n, t_c, True,
-                     fuse_mix=True, mono=True, k_c=2, ring=True)
-    outs = [o[0] for o in run(
-        jnp.asarray(l_in)[None], jnp.asarray(fs0)[None],
-        jnp.asarray(damp)[None], jnp.asarray(feed)[None],
-        jnp.asarray(in_gain)[None], jnp.asarray(wet1)[None],
-        jnp.asarray(wet2)[None], jnp.asarray(dry)[None],
-        *[jnp.asarray(h)[None] for h in hists])]
-    np.testing.assert_allclose(np.asarray(outs[0]), want_final_l,
-                               atol=2e-5, rtol=2e-5)
-    for g, w in zip(outs[3:], want_h):
-        np.testing.assert_allclose(np.asarray(g), w, atol=2e-5, rtol=2e-5)
+    _, (sl, sr) = jax.lax.scan(body, state, (xl, xr))
+    np.testing.assert_allclose(np.asarray(bl), np.asarray(sl), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(br), np.asarray(sr), atol=2e-5,
+                               rtol=2e-5)

@@ -1,7 +1,17 @@
-"""Fused Pallas kernel exercised off-TPU via the Pallas interpreter.
+"""The voice-kernel shell (ops/shell.py) on the CPU.
 
-Small shapes only (interpret mode is slow); full-size validation runs on
-real TPU hardware (bench.py / CLAUDE.md notes).
+Two kinds of check, both without a GPU:
+
+* the shell's Pallas kernels in interpret mode against the scan engine --
+  the whole-patch render for every fused-eligible preset, buffer feedback,
+  the block engine's serial stage and the backward kernel's gradients;
+* the same programs lowered for CUDA (``lower(lowering_platforms=
+  ("cuda",))`` works on a CPU-only host): a primitive the Triton route has
+  no rule for (``slice``, a wide ``concatenate``) fails here, not only on
+  the card.
+
+Small shapes only (interpret mode is slow); full-size validation on the
+card runs in chip_smoke.py.
 """
 
 import numpy as np
@@ -10,23 +20,45 @@ import pytest
 import jax.numpy as jnp
 
 import srack_tpu as st
-from srack_tpu.ops import fused
+from srack_tpu import presets
+from srack_tpu.ops import fused, fused_vjp
 from srack_tpu.presets import subtractive_voice, farm_params
 
+CFG = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
+                     precision="fast")
+FUSED_PRESETS = ["sine", "subtractive", "feedback", "sequencer"]
+
+
+def _batch(compiled, params, v, seed=0):
+    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
+                         compiled.init_state())
+    keys = jax.random.split(jax.random.PRNGKey(seed), v)
+    return state, keys
+
+
+def _assert_states_close(got_tree, want_tree, atol=1e-5):
+    for path, want in jax.tree_util.tree_leaves_with_path(want_tree):
+        got = np.asarray(dict(jax.tree_util.tree_leaves_with_path(
+            got_tree))[path])
+        want = np.asarray(want)
+        msg = jax.tree_util.keystr(path)
+        if want.dtype.kind in "iub":
+            np.testing.assert_array_equal(got, want, err_msg=msg)
+        else:
+            np.testing.assert_allclose(got.astype(np.float64),
+                                       want.astype(np.float64), atol=atol,
+                                       err_msg=msg)
+
+
 def test_fused_kernel_interpret_matches_scan():
-    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
-                         precision="fast")
-    patch = subtractive_voice(cfg)
+    patch = subtractive_voice(CFG)
     compiled = st.compile_patch(patch)
     assert compiled.fused_eligible()
     v, n = 4, 32
     params = farm_params(patch, v)
-    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
-                         compiled.init_state())
-    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    state, keys = _batch(compiled, params, v)
 
-    run = fused.make_fused_render(compiled, n, t_chunk=16, unroll=4,
-                                  interpret=True)
+    run = fused.make_fused_render(compiled, n, unroll=4, interpret=True)
     audio_f, _, state_f = jax.jit(run)(params, state, keys, {})
 
     scan = compiled._get_fn(n, batched=True, engine="scan")
@@ -35,73 +67,79 @@ def test_fused_kernel_interpret_matches_scan():
     np.testing.assert_allclose(np.asarray(audio_f), np.asarray(audio_s),
                                atol=1e-5, rtol=0)
     # carried state agrees too (phase accumulators bit-exact in int32)
-    for mid, sd in state_s["states"].items():
-        for k, leaf in sd.items():
-            got = np.asarray(state_f["states"][mid][k])
-            want = np.asarray(leaf)
-            if got.dtype == np.int32:
-                np.testing.assert_array_equal(got, want)
-            else:
-                np.testing.assert_allclose(
-                    got.astype(np.float64), want.astype(np.float64),
-                    atol=1e-5)
+    _assert_states_close(state_f, state_s)
+
+
+@pytest.mark.parametrize("name", ["sine", "feedback", "sequencer"])
+def test_shell_preset_matches_scan(name):
+    """Every fused-eligible preset runs in the shell: audio and final
+    state match the scan engine.  The sequencer's [16] / [4] / [8, 16]
+    table params reach its step as per-voice rows."""
+    patch = presets.PRESETS[name](CFG)
+    compiled = st.compile_patch(patch)
+    assert compiled.fused_eligible()
+    v, n = 3, 37
+    params = farm_params(patch, v)
+    state, keys = _batch(compiled, params, v)
+    run = fused.make_fused_render(compiled, n, unroll=4, interpret=True)
+    audio_f, _, state_f = jax.jit(run)(params, state, keys, {})
+    audio_s, _, state_s = compiled.render(n, params=params, state=state,
+                                          key=keys, batched=True,
+                                          engine="scan")
+    np.testing.assert_allclose(np.asarray(audio_f), np.asarray(audio_s),
+                               atol=1e-5, rtol=0)
+    _assert_states_close(state_f, state_s)
 
 
 def test_fused_final_state_with_padded_tail():
-    """n NOT a multiple of t_chunk: the kernel's zero-padded tail must not
-    advance the carried state past sample n (regression: the final-state
-    snapshot used to be taken at the padded chunk end)."""
-    from srack_tpu.ops.fused_vjp import make_fused_vjp
-
-    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
-                         precision="fast")
-    patch = subtractive_voice(cfg)
+    """n NOT a multiple of the unroll (or of the backward's chunk): the
+    remainder samples after the unrolled loop must leave the carried state
+    at exactly sample n, in the plain render and in the VJP forward."""
+    patch = subtractive_voice(CFG)
     compiled = st.compile_patch(patch)
-    v, n = 2, 23  # 23 % 16 != 0 -> padded tail of 9 samples
+    v, n = 2, 23  # 23 = 5 * 4 + 3
     params = farm_params(patch, v)
-    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
-                         compiled.init_state())
-    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    state, keys = _batch(compiled, params, v)
     scan = compiled._get_fn(n, batched=True, engine="scan")
     _, _, state_s = scan(params, state, keys, {})
 
     for make in (
-        lambda: fused.make_fused_render(compiled, n, t_chunk=16, unroll=4,
+        lambda: fused.make_fused_render(compiled, n, unroll=4,
                                         interpret=True),
-        lambda: make_fused_vjp(compiled, n, t_chunk=16, unroll=4,
-                               interpret=True),
+        lambda: fused_vjp.make_fused_vjp(compiled, n, unroll=4,
+                                         interpret=True),
     ):
         _, _, state_f = jax.jit(make())(params, state, keys, {})
-        for mid, sd in state_s["states"].items():
-            for k, leaf in sd.items():
-                got = np.asarray(state_f["states"][mid][k])
-                want = np.asarray(leaf)
-                if got.dtype == np.int32:
-                    np.testing.assert_array_equal(got, want, err_msg=f"{mid}.{k}")
-                else:
-                    np.testing.assert_allclose(
-                        got.astype(np.float64), want.astype(np.float64),
-                        atol=1e-5, err_msg=f"{mid}.{k}")
+        _assert_states_close(state_f["states"], state_s["states"])
+
+
+def _grads_match(g1, g2, min_live):
+    nonzero = 0
+    for a, b in zip(jax.tree.leaves(g1), jax.tree.leaves(g2)):
+        a64 = np.asarray(a, np.float64)
+        b64 = np.asarray(b, np.float64)
+        if b64.dtype.kind != "f":
+            continue
+        np.testing.assert_allclose(a64, b64,
+                                   atol=1e-8 + 1e-4 * np.abs(b64).max())
+        nonzero += np.abs(b64).max() > 0
+    assert nonzero >= min_live  # gradients actually flowed
 
 
 @pytest.mark.slow
 def test_fused_vjp_padded_tail_final_state_cotangent():
-    """d(loss)/d(initial state) through ct_final must be injected at sample
-    n-1, not at the padded chunk end (bwd mirror of the snapshot fix)."""
-    from srack_tpu.ops.fused_vjp import make_fused_vjp
+    """d(loss)/d(params) through the final-state cotangent alone: it must
+    be injected at sample n-1 of the backward's last (partial) chunk."""
+    from srack_tpu.ops import shell
 
-    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
-                         precision="fast")
-    patch = subtractive_voice(cfg, gate_rate_oct=-1.0)
+    patch = subtractive_voice(CFG, gate_rate_oct=-1.0)
     compiled = st.compile_patch(patch)
     v, n = 2, 23
     params = farm_params(patch, v)
-    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
-                         compiled.init_state())
-    keys = jax.random.split(jax.random.PRNGKey(0), v)
-    render = make_fused_vjp(compiled, n, t_chunk=16, unroll=4,
-                            interpret=True)
+    state, keys = _batch(compiled, params, v)
+    render = fused_vjp.make_fused_vjp(compiled, n, unroll=4, interpret=True)
     scan_fn = compiled.make_render_fn(n, batched=True)
+    assert n % shell.CHUNK
 
     def loss_of(fn):
         def loss(prm):
@@ -112,32 +150,18 @@ def test_fused_vjp_padded_tail_final_state_cotangent():
                        if jnp.issubdtype(leaf.dtype, jnp.floating))
         return loss
 
-    g1 = jax.grad(loss_of(render))(params)
-    g2 = jax.grad(loss_of(scan_fn))(params)
-    nonzero = 0
-    for a, b in zip(jax.tree.leaves(g1), jax.tree.leaves(g2)):
-        a64, b64 = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        np.testing.assert_allclose(a64, b64,
-                                   atol=1e-8 + 1e-4 * np.abs(b64).max())
-        nonzero += np.abs(b64).max() > 0
-    assert nonzero >= 2
+    _grads_match(jax.grad(loss_of(render))(params),
+                 jax.grad(loss_of(scan_fn))(params), 2)
 
 
 def test_fused_vjp_interpret_matches_scan_grads():
-    """Pallas forward + Pallas backward (ops/fused_vjp) vs scan autodiff."""
-    from srack_tpu.ops.fused_vjp import make_fused_vjp
-
-    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
-                         precision="fast")
-    patch = subtractive_voice(cfg, gate_rate_oct=-1.0)
+    """Shell forward + shell backward (ops/fused_vjp) vs scan autodiff."""
+    patch = subtractive_voice(CFG, gate_rate_oct=-1.0)
     compiled = st.compile_patch(patch)
     v, n = 2, 32
     params = farm_params(patch, v)
-    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
-                         compiled.init_state())
-    keys = jax.random.split(jax.random.PRNGKey(0), v)
-    render = make_fused_vjp(compiled, n, t_chunk=16, unroll=4,
-                            interpret=True)
+    state, keys = _batch(compiled, params, v)
+    render = fused_vjp.make_fused_vjp(compiled, n, unroll=4, interpret=True)
     scan_fn = compiled.make_render_fn(n, batched=True)
 
     a1, _, _ = render(params, state, keys, {})
@@ -150,24 +174,71 @@ def test_fused_vjp_interpret_matches_scan_grads():
             return (audio ** 2).mean()
         return loss
 
-    g1 = jax.grad(loss_of(render))(params)
-    g2 = jax.grad(loss_of(scan_fn))(params)
-    nonzero = 0
-    for a, b in zip(jax.tree.leaves(g1), jax.tree.leaves(g2)):
-        a64 = np.asarray(a, np.float64)
-        b64 = np.asarray(b, np.float64)
-        np.testing.assert_allclose(a64, b64,
-                                   atol=1e-8 + 1e-4 * np.abs(b64).max())
-        nonzero += np.abs(b64).max() > 0
-    assert nonzero >= 4  # gradients actually flowed
+    _grads_match(jax.grad(loss_of(render))(params),
+                 jax.grad(loss_of(scan_fn))(params), 4)
+
+
+def test_shell_vjp_checkpoint_chunks_match_scan_grads():
+    """The backward walks several checkpoint chunks in reverse, the first
+    of them partial (n = 2 * 8 + 5): each chunk's states are recomputed
+    from its checkpoint before the reverse sweep."""
+    from srack_tpu.ops import shell
+
+    patch = subtractive_voice(CFG, gate_rate_oct=-1.0)
+    compiled = st.compile_patch(patch)
+    v, n = 2, 21
+    params = farm_params(patch, v)
+    state, keys = _batch(compiled, params, v)
+    out_keys = fused.channel_keys(compiled)
+
+    def step(p, s, x_t):
+        new_states, fb_out, channels, _ = compiled._sample_step(
+            p, s["states"], s["fb"], x_t)
+        return ({"states": new_states, "fb": fb_out},
+                dict(zip(out_keys, channels)))
+
+    core = shell.differentiable(step, n, out_keys, unroll=3, chunk=8,
+                                interpret=True)
+    w = jax.random.normal(jax.random.PRNGKey(3), (v, n))
+
+    def loss_shell(prm):
+        xs = fused.hoisted_lanes(compiled, prm, keys, {}, n)
+        outs, _ = core(compiled.derived_params(prm), state, xs)
+        return jnp.sum(outs["out0"] * w)
+
+    scan_fn = compiled.make_render_fn(n, batched=True)
+
+    def loss_scan(prm):
+        return jnp.sum(scan_fn(prm, state, keys, {})[0][:, 0] * w)
+
+    _grads_match(jax.grad(loss_shell)(params), jax.grad(loss_scan)(params),
+                 4)
+
+
+def test_shell_buffer_feedback_matches_scan():
+    """Buffer-feedback compat mode in the shell: one kernel call per block
+    under an outer scan, fb wires streamed in and out like lanes."""
+    cfg = st.AudioConfig(sample_rate=4800, block_size=16, channels=1,
+                         precision="fast", buffer_feedback=True)
+    patch = presets.feedback_patch(cfg)
+    compiled = st.compile_patch(patch)
+    n, v = 48, 2
+    params = st.replicate_params(compiled.default_params, v)
+    state, keys = _batch(compiled, params, v)
+    a_s, _, st_s = compiled.render(n, params=params, state=state, key=keys,
+                                   batched=True, engine="scan")
+    fn = jax.jit(fused.make_fused_render_buffer(compiled, n, interpret=True))
+    a_f, _, st_f = fn(params, state, keys, {})
+    np.testing.assert_allclose(np.asarray(a_f), np.asarray(a_s),
+                               atol=3e-6, rtol=0)
+    _assert_states_close(st_f, st_s, atol=3e-6)
 
 
 @pytest.mark.slow
 def test_fused_buffer_feedback_matches_scan_and_oracle():
-    """Buffer-feedback compat mode on the fused kernel (per-block kernel
+    """Buffer-feedback compat mode on the shell (per-block kernel
     invocations under an outer scan, fb wires streamed like xs lanes)
     matches the scan engine and the oracle, including continued renders."""
-    from srack_tpu import presets
     from srack_tpu.oracle import oracle_render
     cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
                          precision="fast", buffer_feedback=True)
@@ -175,16 +246,14 @@ def test_fused_buffer_feedback_matches_scan_and_oracle():
     compiled = st.compile_patch(patch)
     n, v = 192, 2
     params = st.replicate_params(compiled.default_params, v)
-    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
-                         compiled.init_state())
-    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    state, keys = _batch(compiled, params, v)
     a_s, _, _ = compiled.render(n, params=params, state=state, key=keys,
                                 batched=True, engine="scan")
-    fn = jax.jit(fused.make_fused_render_buffer(compiled, n))
+    fn = jax.jit(fused.make_fused_render_buffer(compiled, n, interpret=True))
     a_f, _, st_f = fn(params, state, keys, {})
     np.testing.assert_allclose(np.asarray(a_f), np.asarray(a_s),
                                atol=3e-6, rtol=0)
-    # continue from the fused final state on the scan engine
+    # continue from the shell's final state on the scan engine
     a_s2, _, _ = compiled.render(n, params=params, state=st_f, key=keys,
                                  batched=True, engine="scan")
     a_f2, _, _ = fn(params, st_f, keys, {})
@@ -194,47 +263,73 @@ def test_fused_buffer_feedback_matches_scan_and_oracle():
     np.testing.assert_allclose(np.asarray(a_f[0]), want, atol=3e-4, rtol=0)
 
 
-def test_packed_audio_vjp_matches_unpacked():
-    """packed_audio=True (round 5): audio/cotangent stay in the kernels'
-    [n, C, tiles, 8, 128] layout.  At V == TILE_VOICES (no pad voices)
-    an elementwise loss over the packed array is the same global mean,
-    so loss AND parameter gradients must match the unpacked path."""
-    from srack_tpu.ops.fused_vjp import make_fused_vjp, pack_lanes
-
-    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
-                         precision="fast")
-    patch = subtractive_voice(cfg, gate_rate_oct=-1.0)
+@pytest.mark.parametrize("name,channels", [("drums", 1), ("reverb", 2),
+                                           ("subtractive", 1)])
+def test_block_serial_stage_in_shell_matches_scan(name, channels):
+    """The block engine's serial stage (Moog, ADSR and absorbed register
+    modules) in the shell, Sample/Freeverb/scans in XLA: matches the scan
+    engine as the lax.scan stage does."""
+    cfg = st.AudioConfig(sample_rate=4800, block_size=64,
+                         channels=channels, precision="fast")
+    patch = presets.PRESETS[name](cfg)
     compiled = st.compile_patch(patch)
-    v, n = 1024, 64
+    prog = compiled.block_program()
+    assert prog._use_shell(True)
+    v, n = 2, 64
     params = farm_params(patch, v)
-    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
-                         compiled.init_state())
-    keys = jax.random.split(jax.random.PRNGKey(0), v)
-    rng = np.random.default_rng(5)
-    targets = jnp.asarray(rng.normal(size=(v, 1, n)).astype(np.float32))
+    state, keys = _batch(compiled, params, v)
+    a_b, _, s_b = jax.jit(prog.make_run(n, interpret=True))(
+        params, state, keys, {})
+    a_s, _, _ = compiled.render(n, params=params, state=state, key=keys,
+                                batched=True, engine="scan")
+    np.testing.assert_allclose(np.asarray(a_b), np.asarray(a_s),
+                               atol=5e-6, rtol=0)
 
-    r_plain = make_fused_vjp(compiled, n, interpret=True)
-    r_packed = make_fused_vjp(compiled, n, interpret=True,
-                              packed_audio=True)
-    tgt_p = pack_lanes(targets)
 
-    def loss_plain(p):
-        audio, _, _ = r_plain(p, state, keys, {})
-        return jnp.mean((audio - targets) ** 2)
+# -- the same programs lowered for CUDA (no GPU needed) ----------------------
 
-    def loss_packed(p):
-        audio, _, _ = r_packed(p, state, keys, {})
-        return jnp.mean((audio - tgt_p) ** 2)
+def _lower_cuda(fn, *args):
+    return jax.jit(fn).trace(*args).lower(lowering_platforms=("cuda",))
 
-    l0, g0 = jax.value_and_grad(loss_plain)(params)
-    l1, g1 = jax.value_and_grad(loss_packed)(params)
-    np.testing.assert_allclose(float(l0), float(l1), rtol=1e-6)
-    flat0 = jax.tree_util.tree_leaves_with_path(g0)
-    flat1 = dict((jax.tree_util.keystr(k), v) for k, v in
-                 jax.tree_util.tree_leaves_with_path(g1))
-    for k, a in flat0:
-        b = flat1[jax.tree_util.keystr(k)]
-        if a.dtype == np.float32:
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=1e-6, rtol=1e-5,
-                                       err_msg=jax.tree_util.keystr(k))
+
+@pytest.mark.parametrize("name", FUSED_PRESETS)
+def test_fused_render_lowers_for_cuda(name):
+    patch = presets.PRESETS[name](CFG)
+    compiled = st.compile_patch(patch)
+    v, n = 64, 256
+    params = farm_params(patch, v)
+    state, keys = _batch(compiled, params, v)
+    text = _lower_cuda(fused.make_fused_render(compiled, n), params, state,
+                       keys, {}).as_text()
+    assert "voice_shell_fwd" in text
+
+
+def test_block_serial_stage_lowers_for_cuda(monkeypatch):
+    from srack_tpu import route
+
+    patch = presets.drum_machine(CFG)
+    compiled = st.compile_patch(patch)
+    prog = compiled.block_program()
+    v, n = 64, 256
+    params = farm_params(patch, v)
+    state, keys = _batch(compiled, params, v)
+    # make_run(interpret=False) takes the shell only where the platform
+    # has it: build the stage as on a GPU
+    monkeypatch.setattr(route, "voice_kernel", lambda: True)
+    text = _lower_cuda(prog.make_run(n), params, state, keys, {}).as_text()
+    assert "voice_shell_fwd" in text
+
+
+def test_vjp_backward_lowers_for_cuda():
+    patch = subtractive_voice(CFG)
+    compiled = st.compile_patch(patch)
+    v, n = 64, 300  # two full checkpoint chunks and a partial one
+    params = farm_params(patch, v)
+    state, keys = _batch(compiled, params, v)
+    render = fused_vjp.make_fused_vjp(compiled, n)
+
+    def loss(prm):
+        return jnp.mean(render(prm, state, keys, {})[0] ** 2)
+
+    text = _lower_cuda(jax.grad(loss), params).as_text()
+    assert "voice_shell_fwd" in text and "voice_shell_bwd" in text

@@ -133,7 +133,7 @@ def test_fuzz_fused_odd_n_matches_scan(seed, n):
     a_scan, _, s_scan = compiled.render(n, params=params, state=state,
                                         key=keys, batched=True,
                                         engine="scan")
-    run = jax.jit(fused.make_fused_render(compiled, n, t_chunk=16, unroll=4,
+    run = jax.jit(fused.make_fused_render(compiled, n, unroll=4,
                                           interpret=True))
     a_fus, _, s_fus = run(params, state, keys, {})
     np.testing.assert_allclose(np.asarray(a_fus), np.asarray(a_scan),

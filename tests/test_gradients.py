@@ -1,7 +1,7 @@
 """Gradient correctness pins.
 
 The engine-agreement test (test_utils.test_grad_render_fn_matches_scan_grads)
-compares the Pallas-VJP path against scan autodiff with a deliberately loose
+compares the custom-VJP path against scan autodiff with a deliberately loose
 relative bound, because the resonant filter's backward recurrence amplifies
 f32 rounding.  That bound alone cannot tell "legitimately amplified float
 noise" from "wrong gradient math" -- these tests pin the *absolute* scale:
@@ -10,8 +10,9 @@ noise" from "wrong gradient math" -- these tests pin the *absolute* scale:
   render itself is f32; with eps = 1e-3 the FD truncation error is O(eps^2)
   ~ 1e-6 and the f32 evaluation noise contributes ~ noise/eps ~ 1e-4, so a
   1% relative / 1e-3 absolute agreement bound is meaningful, not cosmetic);
-* checked against BOTH scan autodiff and the fused custom-vjp path
-  (interpret mode off-TPU), per parameter, on a patch exercising the
+* checked against BOTH scan autodiff and ``grad_render_fn``'s custom-VJP
+  path (on a GPU the shell's kernels; on the CPU the scan engine behind
+  the same custom VJP), per parameter, on a patch exercising the
   oscillator's pitch path, the Moog ladder, and the full ADSR trajectory.
 """
 
@@ -99,8 +100,8 @@ def test_scan_autodiff_matches_finite_differences():
 
 
 def test_fused_vjp_matches_finite_differences():
-    """The hand-chunked Pallas forward+backward (ops/fused_vjp.py, here in
-    interpret mode) reproduces finite-difference gradients -- the absolute
+    """``grad_render_fn`` (on a GPU the shell's forward+backward kernels,
+    ops/fused_vjp.py) reproduces finite-difference gradients -- the absolute
     pin that the loosened engine-agreement tolerance can't provide."""
     compiled, params, ids, key, w, loss_scan = _setup()
     loss_jit = jax.jit(loss_scan)
@@ -152,7 +153,7 @@ def test_pitch_gradient_fast_mode_ste_matches_finite_differences():
         f"vco.val (fast/STE): autodiff {g_ad:.6g} vs FD {g_fd:.6g}")
     assert abs(g_fd) > 1.0
 
-    # and through the Pallas fwd+bwd path (interpret mode off-TPU)
+    # and through grad_render_fn's custom-VJP path
     gr = compiled.grad_render_fn(N, batched=True)
 
     def loss_fused(params):

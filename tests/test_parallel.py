@@ -77,8 +77,8 @@ def test_sharded_training_step_runs_and_reduces():
 
 
 def test_sharded_fast_train_step_matches_scan_gradients():
-    """The Pallas-VJP path sharded with shard_map over the batch axis
-    (pallas_call itself is not SPMD-partitionable) takes the same
+    """The fast (custom-VJP) path sharded with shard_map over the batch
+    axis (pallas_call itself is not SPMD-partitionable) takes the same
     optimizer step as scan autodiff."""
     cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
                          precision="fast")

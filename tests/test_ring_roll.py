@@ -1,8 +1,8 @@
-"""ops/ring_roll.ring_align: per-row ring canonicalization kernel.
+"""Freeverb's ring canonicalization (modules/freeverb.ring_to_chronological).
 
-Interpret-mode correctness on CPU (the TPU lowering is exercised by the
-reverb bench path; mechanism validated on hardware in
-scripts/probe_rot.py R1).
+The block path rotates each delay line from ring order (write index
+``idx``) to time order once per render; pinned against ``np.roll`` for
+odd line lengths, batched (vmapped) voices and one voice.
 """
 
 import jax
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from srack_tpu.ops.ring_roll import _align_rows, ring_align
+from srack_tpu.modules.freeverb import ring_to_chronological as ring_align
 
 
 @pytest.mark.parametrize("rows,length", [
@@ -23,7 +23,7 @@ def test_align_rows_matches_numpy_roll(rows, length):
     key = jax.random.PRNGKey(0)
     buf = jax.random.normal(key, (rows, length), jnp.float32)
     idx = jax.random.randint(jax.random.PRNGKey(1), (rows,), 0, length)
-    out = np.asarray(_align_rows(buf, idx, True))
+    out = np.asarray(jax.jit(jax.vmap(ring_align))(buf, idx))
     want = np.stack([np.roll(np.asarray(buf)[r], -int(idx[r]))
                      for r in range(rows)])
     np.testing.assert_array_equal(out, want)

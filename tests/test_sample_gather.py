@@ -1,23 +1,24 @@
-"""Windowed dynamic-gather kernel (ops/sample_gather) correctness.
+"""The waveform read of Sample playback: a plain gather per voice.
 
-The kernel runs compiled only on TPU; these tests pin its semantics in
-Pallas interpret mode against plain numpy indexing, across the index
-patterns sample playback produces (sample.rs:215-236): monotone ramps,
-trigger restarts, end-of-sample resets, divergent per-voice positions,
-and adversarial uniform-random indices (residual-loop path).
+``modules/sample._block`` reads ``params["samples"][idx]`` under the
+engine's voice vmap.  These pin that batched gather against numpy
+indexing across the index patterns sample playback produces
+(sample.rs:215-236): monotone ramps, trigger restarts, end-of-sample
+resets, divergent per-voice positions and uniform-random indices.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from srack_tpu.ops import sample_gather
+
+def _gather(t, i):
+    return t[i]
 
 
 def _run(table, idx):
-    return np.asarray(sample_gather._gather_rows(
-        jnp.asarray(table, jnp.float32), jnp.asarray(idx, jnp.int32), True))
+    return np.asarray(jax.jit(jax.vmap(_gather))(
+        jnp.asarray(table, jnp.float32), jnp.asarray(idx, jnp.int32)))
 
 
 def _want(table, idx):
@@ -46,7 +47,7 @@ def test_trigger_restarts():
 def test_divergent_rates():
     rng = np.random.default_rng(1)
     starts = rng.integers(0, K, (R, 1))
-    rates = np.exp2(rng.uniform(-1, 2, (R, 1)))  # 0.5 .. 4: residual path
+    rates = np.exp2(rng.uniform(-1, 2, (R, 1)))  # 0.5 .. 4
     idx = ((starts + np.arange(N)[None] * rates) % (K - 1)).astype(np.int32)
     np.testing.assert_array_equal(_run(TBL, idx), _want(TBL, idx))
 
@@ -57,31 +58,27 @@ def test_uniform_random_worst_case():
     np.testing.assert_array_equal(_run(TBL, idx), _want(TBL, idx))
 
 
-@pytest.mark.slow
 def test_edges_and_tiny_table():
     idx = np.zeros((1, N), np.int32)
     idx[0, :10] = K - 1
     np.testing.assert_array_equal(_run(TBL[:1], idx), _want(TBL[:1], idx))
-    # table smaller than one chunk
+    # a 7-frame table
     tbl = TBL[:2, :7]
     idx2 = np.random.default_rng(3).integers(0, 7, (2, N)).astype(np.int32)
     np.testing.assert_array_equal(_run(tbl, idx2), _want(tbl, idx2))
 
 
-@pytest.mark.slow
 def test_small_table_static_path():
-    """Tables at/under SMALL_CHUNKS chunks take the static whole-table
-    kernel (no windows); check both sides of the threshold boundary."""
+    """Drum-sized and power-of-two-boundary table lengths."""
     rng = np.random.default_rng(5)
-    for k in (400, sample_gather.SMALL_CHUNKS * 128,
-              sample_gather.SMALL_CHUNKS * 128 + 1):
+    for k in (400, 1024, 1025):
         tbl = rng.normal(size=(R, k)).astype(np.float32)
         idx = rng.integers(0, k, (R, N)).astype(np.int32)
         np.testing.assert_array_equal(_run(tbl, idx), _want(tbl, idx))
 
 
 def test_unpadded_shapes():
-    # rows/cols that need padding to (RB, T_CH)
+    # odd voice count and a length that is no power of two
     tbl = TBL[:3]
     idx = (np.arange(2500)[None] % (K - 1)).astype(np.int32)
     idx = np.broadcast_to(idx, (3, 2500)).copy()
@@ -92,21 +89,26 @@ def test_vmap_folds_batch_into_rows():
     rng = np.random.default_rng(4)
     tbl = jnp.asarray(TBL)
     idx = jnp.asarray(rng.integers(0, K, (R, N)), jnp.int32)
-    got = jax.vmap(
-        lambda t, i: sample_gather._gather2d(t[None], i[None])[0])(tbl, idx)
-    np.testing.assert_array_equal(np.asarray(got), _want(TBL, idx))
+    got = jax.vmap(_gather)(tbl, idx)
+    want = jnp.take_along_axis(tbl, idx, axis=1)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_eligibility_gates():
-    t1 = jnp.zeros((2048,), jnp.float32)
-    i1 = jnp.zeros((4096,), jnp.int32)
-    # off-TPU it must decline (tests run on CPU)
-    assert not sample_gather.eligible(t1, i1)
-    # shape/dtype gates are backend-independent
-    assert not sample_gather.eligible(t1.astype(jnp.int32), i1)
-    assert not sample_gather.eligible(t1, jnp.zeros((64,), jnp.int32))
-    huge = jax.ShapeDtypeStruct((5_000_000,), jnp.float32)
+    """A table padded past its logical length (``max_len``) is never read
+    beyond ``length``: after the end crossing the player holds
+    ``samples[0]`` (sample.rs:223-226), so an all-ones waveform padded
+    with zeros plays only ones."""
+    from srack_tpu.config import AudioConfig
+    from srack_tpu.modules.sample import SAMPLE
 
-    class _S:  # shape-only stand-in
-        ndim, shape, dtype = 1, huge.shape, huge.dtype
-    assert not sample_gather.eligible(_S(), i1)
+    cfg = AudioConfig(sample_rate=48000, block_size=1024, channels=1,
+                      precision="fast")
+    statics, params = SAMPLE.make(cfg, samples=np.ones(100, np.float32),
+                                  wav_sample_rate=96000.0, max_len=256)
+    params = jax.tree.map(jnp.asarray, params)
+    gate = (np.arange(1000) % 300 == 1).astype(np.float32)
+    _, (out,) = SAMPLE.block(cfg, statics, params,
+                             SAMPLE.init_state(cfg, statics),
+                             (jnp.asarray(gate), None), None, 1000)
+    np.testing.assert_array_equal(np.asarray(out), np.ones(1000, np.float32))

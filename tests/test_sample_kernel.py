@@ -1,6 +1,7 @@
-"""Fused whole-Sample position+gather kernel (ops/sample_kernel).
+"""Whole-block Sample playback (modules/sample.py ``_block``, plain XLA).
 
-Pins the kernel (Pallas interpret mode on CPU) against a serial NumPy
+Pins the block path -- segmented position prefix sums, end-of-sample
+threshold crossing, the waveform gather -- against a serial NumPy
 re-statement of the reference player's per-tick semantics
 (src/synth/sample.rs:215-236): rising gate edge restarts playback, rate
 ``(wav_sr/sr) * 2^cv`` with truncating nearest-neighbour reads,
@@ -8,17 +9,21 @@ end-of-sample reset-to-zero stop, carried pos/playing/TransitionDetector
 state across blocks.
 
 Rates are chosen exactly representable (multiples of 0.5) so the serial
-f32 accumulation and the kernel's chunked prefix sums agree bit-for-bit;
-a fuzz case with irrational rates allows the rare one-ulp truncation
+f32 accumulation and the block path's prefix sums agree bit-for-bit; a
+fuzz case with irrational rates allows the rare one-ulp truncation
 disagreements nearest-neighbour resampling admits.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from srack_tpu.ops import sample_kernel
+from srack_tpu.config import AudioConfig
+from srack_tpu.modules.sample import SAMPLE
+
+SR = 48000
+CFG = AudioConfig(sample_rate=SR, block_size=1024, channels=1,
+                  precision="fast")
 
 
 def serial_ref(gate, cvl, table, length, rate_base,
@@ -49,19 +54,29 @@ def serial_ref(gate, cvl, table, length, rate_base,
 
 def run_kernel(gate, cvl, table, length, rate_base,
                pos=None, playing=None, last=None):
-    """``cvl=None`` exercises the constant-rate (unconnected CV) kernel."""
+    """The Sample module's block path, vmapped over voices (one table per
+    voice).  ``cvl=None`` is the unconnected-CV (constant-rate) path."""
     r, n = gate.shape
     pos = np.zeros(r, np.float32) if pos is None else np.asarray(pos)
     playing = (np.zeros(r, bool) if playing is None
                else np.asarray(playing))
     last = np.ones(r, bool) if last is None else np.asarray(last)
-    outs = sample_kernel.play_rows(
+    statics = ("sample", table.shape[1])
+
+    def one(g, c, t, p, pl_, la):
+        params = {"samples": t, "length": jnp.asarray(length, jnp.int32),
+                  "wav_sr": jnp.float32(rate_base * SR)}
+        state = {"pos": p, "playing": pl_, "gate_last": la}
+        st, (out,) = SAMPLE.block(CFG, statics, params, state, (g, c),
+                                  None, n)
+        return out, st["pos"], st["playing"], st["gate_last"]
+
+    outs = jax.jit(jax.vmap(one, in_axes=(0, None if cvl is None else 0,
+                                          0, 0, 0, 0)))(
         jnp.asarray(gate, jnp.float32),
         None if cvl is None else jnp.asarray(cvl, jnp.float32),
-        jnp.asarray(table, jnp.float32),
-        jnp.full((r,), rate_base, jnp.float32),
-        jnp.asarray(pos, jnp.float32), jnp.asarray(playing),
-        jnp.asarray(last), jnp.full((r,), length, jnp.int32))
+        jnp.asarray(table, jnp.float32), jnp.asarray(pos, jnp.float32),
+        jnp.asarray(playing), jnp.asarray(last))
     return tuple(np.asarray(o) for o in outs)
 
 
@@ -89,14 +104,12 @@ GATE = (RNG.random((R, N)) > 0.998).astype(np.float32)
 ZCV = np.zeros((R, N), np.float32)
 
 
-@pytest.mark.slow
 def test_triggers_rate_one():
     check(GATE, ZCV, TBL, K, 1.0)
 
 
 def test_small_table_through_position_kernel():
-    """A drums-style small table (<= SMALL_CHUNKS chunks): the position
-    kernel skips window summaries and the gather takes the static path."""
+    """A drums-style small (400-frame) table."""
     k = 400
     tbl = RNG.normal(size=(R, k)).astype(np.float32)
     check(GATE, ZCV, tbl, k, 1.0)
@@ -104,8 +117,9 @@ def test_small_table_through_position_kernel():
 
 
 def test_const_rate_path():
-    """cv=None (unconnected CV input): the constant-rate kernel, still
-    bit-exact against the serial reference at representable rates."""
+    """cv=None (unconnected CV input): the constant-rate path (position =
+    base * t, no scan), still bit-exact against the serial reference at
+    representable rates."""
     check(GATE, None, TBL, K, 1.0)
     check(GATE, None, TBL, K, 1.5)
     # end-crossing + restarts through the const path
@@ -188,11 +202,9 @@ def test_fuzz_irrational_rates():
     assert mismatch <= R * N * 1e-3, mismatch
 
 
-@pytest.mark.slow
 def test_batch_scale_long_table():
-    """Real-length (48,000-frame) tables at batch scale through the full
-    kernel pair -- the workload the round-2 verdict said the toy-table
-    drum bench sidestepped.  16 rows fold into one 32-row kernel tile."""
+    """Real-length (48,000-frame) tables at batch scale -- the workload the
+    toy-table drum patch sidesteps."""
     k, r, n = 48000, 16, 4096
     rng = np.random.default_rng(3)
     tbl = rng.normal(size=(r, k)).astype(np.float32)
@@ -201,11 +213,9 @@ def test_batch_scale_long_table():
     check(gate, cvl, tbl, k, 1.5)
 
 
-@pytest.mark.slow
 def test_ragged_n_not_lane_aligned():
-    """n neither a T_CH multiple nor a 128 multiple: lanes now go to the
-    kernel UNPADDED (the whole-segment pad was a fresh [V, n] HBM copy per
-    Sample) and the ragged final block is masked in-kernel."""
+    """n that is no power of two or multiple of 128, with end-crossings
+    landing near the end of the block."""
     n = 2500
     gate = (RNG.random((R, n)) > 0.995).astype(np.float32)
     cvl = RNG.integers(-1, 2, (R, n)).astype(np.float32)
@@ -215,92 +225,48 @@ def test_ragged_n_not_lane_aligned():
     check(gate, cvl, TBL, 600, 2.0)
 
 
-@pytest.mark.slow
-def test_whole_step_consecutive_fast_path():
-    """Deterministically exercise the whole-step consecutive tier
-    (sample_kernel._make_kernel consec_all): gate all-zero, carried
-    playing=True, base rate 1.0, cv unconnected, K > SMALL_CHUNKS*128 --
-    every T_CH block has idx == first0 + iota tile-wide, so the shared
-    (NBLK+1)-chunk slab path runs (the sparse-trigger fixtures above
-    ~never make consec_all true; advisor round-4 finding)."""
-    n = 4096  # two full T_CH=2048 grid steps, no ragged tail
-    gate = np.zeros((R, n), np.float32)
-    # non-128-aligned, 128-ALIGNED (lo0 == 0: the slab's top chunk is the
-    # first pad chunk, the bound-equality case), fractional, and zero
-    pos = np.array([37.0, 256.0, 500.5, 0.0], np.float32)
-    playing = np.ones(R, bool)
-    check(gate, None, TBL, K, 1.0, pos=pos, playing=playing,
-          last=np.zeros(R, bool))
-    # a voice crossing the table end mid-render breaks consec_all for its
-    # step: the kernel must fall back to per-block tiers and stay bit-exact
-    # (crossing voice resets to silence, the others stay consecutive)
-    pos2 = np.array([37.0, 256.0, float(K) - 1500.0, 0.0], np.float32)
-    check(gate, None, TBL, K, 1.0, pos=pos2, playing=playing,
-          last=np.zeros(R, bool))
-
-
-@pytest.mark.slow
 def test_vmap_folds_voices():
-    out = jax.vmap(
-        lambda g, c, t: sample_kernel.play_table(
-            g, c, t, 1.0, 0.0, False, True, K)[0]
-    )(jnp.asarray(GATE), jnp.asarray(ZCV), jnp.asarray(TBL))
-    want = run_kernel(GATE, ZCV, TBL, K, 1.0)[0]
-    np.testing.assert_array_equal(np.asarray(out), want)
-
-
-@pytest.mark.slow
-def test_module_block_fused_path_matches_unfused(monkeypatch):
-    """Force the module's fused path (interpret mode) and compare with
-    the unfused XLA block path at exactly-representable rates."""
-    from srack_tpu.config import AudioConfig
-    from srack_tpu.modules.sample import SAMPLE
-    from srack_tpu.modules import sample as sample_mod
-
-    cfg = AudioConfig(sample_rate=48000, block_size=1024, channels=1,
-                      precision="fast")
-    statics, params = SAMPLE.make(cfg, samples=TBL[0],
-                                  wav_sample_rate=24000.0)
-    params = jax.tree.map(jnp.asarray, params)
-    state0 = SAMPLE.init_state(cfg, statics)
-
-    def run(cv):
-        return SAMPLE.block(cfg, statics, params, state0,
-                            (jnp.asarray(GATE[0]), cv), None, N)
-
-    # connected CV lane AND unconnected CV (constant-rate fast path)
-    for cv in (jnp.asarray(ZCV[0]), None):
-        monkeypatch.setattr(sample_mod.sample_kernel, "eligible",
-                            lambda *a: False)
-        st_ref, (out_ref,) = run(cv)
-        monkeypatch.setattr(sample_mod.sample_kernel, "eligible",
-                            lambda *a: True)
-        st_fused, (out_fused,) = run(cv)
-        np.testing.assert_array_equal(np.asarray(out_fused),
-                                      np.asarray(out_ref))
-        for k in st_ref:
-            np.testing.assert_array_equal(np.asarray(st_fused[k]),
-                                          np.asarray(st_ref[k]),
-                                          err_msg=k)
+    """Voices that share one table (the engine's case) through the same
+    vmapped block path."""
+    tbl = np.broadcast_to(TBL[:1], TBL.shape)
+    check(GATE, ZCV, tbl, K, 1.0)
 
 
 def test_eligibility_gates():
-    t1 = jnp.zeros((2048,), jnp.float32)
-    g1 = jnp.zeros((4096,), jnp.float32)
-    # off-TPU it must decline (tests run on CPU)
-    assert not sample_kernel.eligible(t1, g1, 4096)
-    assert not sample_kernel.eligible(t1.astype(jnp.float64), g1, 4096)
-    assert not sample_kernel.eligible(t1, g1.astype(jnp.float64), 4096)
-    assert not sample_kernel.eligible(t1, g1, 512)
+    """The block path and the per-sample step (scan engine) agree on one
+    voice, connected CV and unconnected."""
+    from srack_tpu.modules.sample import _step
+
+    n = 1500
+    gate = (RNG.random(n) > 0.99).astype(np.float32)
+    cvl = RNG.integers(-1, 2, n).astype(np.float32)
+    statics, params = SAMPLE.make(CFG, samples=TBL[0], wav_sample_rate=SR)
+    params = jax.tree.map(jnp.asarray, params)
+    state0 = SAMPLE.init_state(CFG, statics)
+    for cv in (cvl, None):
+        st_b, (out_b,) = SAMPLE.block(
+            CFG, statics, params, state0,
+            (jnp.asarray(gate), None if cv is None else jnp.asarray(cv)),
+            None, n)
+
+        def body(st, x):
+            g, c = x
+            st, (o,) = _step(CFG, statics, params, st,
+                             (g, None if cv is None else c))
+            return st, o
+
+        st_s, out_s = jax.lax.scan(
+            body, state0, (jnp.asarray(gate), jnp.asarray(cvl)))
+        np.testing.assert_array_equal(np.asarray(out_b), np.asarray(out_s))
+        for k in st_s:
+            np.testing.assert_array_equal(np.asarray(st_b[k]),
+                                          np.asarray(st_s[k]), err_msg=k)
 
 
 def test_scattered_triggers_slim_general_tier():
-    """Per-row DESYNCHRONIZED random triggers at rate <= 1.0 (the
-    heterogeneous-kit workload): most blocks fail the all-rows
-    consecutive checks and take the general window tier, which at
-    max(base) <= 1.0 runs the round-5 slim 2-chunk slab.  Bit-parity
-    against the serial reference, including a sub-1 rate and a ragged
-    tail."""
+    """Per-voice DESYNCHRONIZED random triggers at rate <= 1.0 (the
+    heterogeneous-kit workload), including a sub-1 rate and a ragged
+    length."""
     rng = np.random.default_rng(77)
     n = 4096 + 100
     gate = (rng.random((R, n)) < 1.0 / 900.0).astype(np.float32)
